@@ -183,7 +183,7 @@ def test_small_tree_sampling_uses_the_generator():
     with pytest.raises(ValueError):  # no latents injected, no generator
         model(AttrDict(inputs, end_ind=a.end_ind), phase="test")
     for phase, mode in (("train", "posterior"), ("test", "posterior")):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="traj_seq"):  # posterior needs the sequence
             model(inputs, phase=phase, mode=mode)
 
 

@@ -1,6 +1,6 @@
 """Auxiliary models attached to the predictor (models/aux_models.py of the
-JAX package), forward only: length predictor, inverse model, cost model,
-state regressor."""
+JAX package): length predictor, inverse model, cost model, state regressor,
+with their losses and the cost model's training targets."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +9,14 @@ import torch
 import torch.nn as nn
 
 from video_gcp_torch.core.attrdict import AttrDict
+from video_gcp_torch.core import distributions
+from video_gcp_torch.core.losses import ce_logits_loss, l2_loss
 from video_gcp_torch.models.nets import MLP
+
+
+def gather_t(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, T, ...], idx [B] -> x[b, idx[b]] of shape [B, ...]."""
+    return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
 class LengthPredictor(nn.Module):
@@ -34,6 +41,11 @@ class LengthPredictor(nn.Module):
         return AttrDict(seq_len_logits=logits,
                         end_ind_pred=torch.clamp(sampled, min=2))
 
+    @staticmethod
+    def loss(outputs: AttrDict, end_ind: torch.Tensor, weight: float) -> AttrDict:
+        return AttrDict(seq_len=ce_logits_loss(outputs.seq_len_logits, end_ind,
+                                               weight=weight))
+
 
 class InverseModel(nn.Module):
     """action_t = MLP(e_t, e_{t+1})."""
@@ -47,6 +59,13 @@ class InverseModel(nn.Module):
     def forward(self, enc_seq_0: torch.Tensor, enc_seq_1: torch.Tensor) -> torch.Tensor:
         return self.mlp[0](enc_seq_0, enc_seq_1)
 
+    @staticmethod
+    def loss(actions_pred, actions_gt, pad_mask, weight: float = 1.0) -> AttrDict:
+        n = actions_pred.shape[1]
+        return AttrDict(action_reconst=l2_loss(
+            actions_pred, actions_gt[:, :n], weights=pad_mask[:, :n, None],
+            weight=weight))
+
 
 class CostModel(nn.Module):
     """cost(e_start, e_end) -> scalar."""
@@ -58,6 +77,31 @@ class CostModel(nn.Module):
 
     def forward(self, enc_start: torch.Tensor, enc_end: torch.Tensor) -> torch.Tensor:
         return self.mlp[0](enc_start, enc_end)
+
+    @staticmethod
+    def sample_targets(generator: torch.Generator, model_enc_seq: torch.Tensor,
+                       traj_seq: torch.Tensor, end_ind: torch.Tensor):
+        """A random index pair per example and the GT path length between
+        them: the cumulative frame-to-frame distance of traj_seq
+        (cost_mdl.py:82-100). Latents and target carry no gradient."""
+        b = end_ind.shape[0]
+        dev = end_ind.device
+        u1 = distributions.uniform((b,), generator, dev)
+        u2 = distributions.uniform((b,), generator, dev)
+        end = end_ind.to(torch.float32)
+        start_idx = (u1 * (end - 1.0)).to(torch.int64)
+        end_idx = (u2 * (end - (start_idx + 1)) + (start_idx + 1)).to(torch.int64)
+        start = gather_t(model_enc_seq, start_idx).detach()
+        stop = gather_t(model_enc_seq, end_idx).detach()
+        flat = traj_seq.reshape(traj_seq.shape[:2] + (-1,))
+        step_len = torch.linalg.vector_norm(flat[:, 1:] - flat[:, :-1], dim=-1)
+        cum = torch.cat([step_len.new_zeros(b, 1), torch.cumsum(step_len, 1)], 1)
+        gt_cost = gather_t(cum, end_idx) - gather_t(cum, start_idx)
+        return start, stop, gt_cost[:, None].detach()
+
+    @staticmethod
+    def loss(cost_pred, cost_target) -> AttrDict:
+        return AttrDict(cost_estimation=l2_loss(cost_pred, cost_target))
 
 
 class StateRegressor(nn.Module):

@@ -1,6 +1,7 @@
 """Shared GCP model core (models/base.py of the JAX package): hparam
 validation, module construction, input preprocessing, encoding, length
-prediction and the folded decode."""
+prediction, the folded decode, the auxiliary models' training pass and the
+loss assembly."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,12 +10,16 @@ import torch
 import torch.nn as nn
 
 from video_gcp_torch.core.attrdict import AttrDict
+from video_gcp_torch.core import distributions
+from video_gcp_torch.core.losses import LossTerm, l2_loss, total_loss
+from video_gcp_torch.core.schedules import kl_weight_at
 from video_gcp_torch.models import dlm
 from video_gcp_torch.models.aux_models import (
     CostModel,
     InverseModel,
     LengthPredictor,
     StateRegressor,
+    gather_t,
 )
 from video_gcp_torch.models.nets import (
     ConvDecoder,
@@ -202,3 +207,83 @@ class BaseGCPModel(nn.Module):
         if self.use_dlm:
             return dlm.mean(out, self.hp["input_nc"]), out
         return out, None
+
+    def log_sigma(self) -> torch.Tensor:
+        return self.log_sigma_mod()
+
+    # ----- training ----------------------------------------------------------
+
+    def run_aux_models(self, inputs: AttrDict, phase: str,
+                       generator: Optional[torch.Generator]) -> AttrDict:
+        """Inverse model, state regressor and cost model on the matched latent
+        timeline `inputs.model_enc_seq` [B, T, D] (base_gcp.py:234-262)."""
+        hp = self.hp
+        aux = AttrDict()
+        if "model_enc_seq" not in inputs:
+            return aux
+        enc_seq = inputs.model_enc_seq
+        if hp["attach_inv_mdl"] and phase == "train":
+            if hp.get("train_inv_mdl_full_seq", False):
+                detached = enc_seq.detach()
+                aux.actions = self.inv_mdl(detached[:, :-1], detached[:, 1:])
+            else:
+                # pair sampling (inverse_mdl.py:85-101): t0 uniform in
+                # [0, end - temp_dist], t1 = t0 + delta, delta in [1, temp_dist];
+                # the action at t0 regressed from the GT frame encodings
+                temp_dist = hp["inv_mdl_params"].get("temp_dist", 1)
+                b, dev = enc_seq.shape[0], enc_seq.device
+                max_t0 = torch.clamp(inputs.end_ind.to(torch.float32) - temp_dist,
+                                     min=0.0)
+                u0 = distributions.uniform((b,), generator, dev)
+                u1 = distributions.uniform((b,), generator, dev)
+                t0 = (u0 * (max_t0 + 1.0)).to(torch.int64)
+                delta = 1 + (u1 * temp_dist).to(torch.int64)
+                src = inputs.enc_traj_seq.detach()
+                aux.pair_action = self.inv_mdl(gather_t(src, t0),
+                                               gather_t(src, t0 + delta))[:, None]
+                aux.pair_action_target = gather_t(inputs.actions, t0)[:, None]
+        if hp["attach_state_regressor"]:
+            aux.regressed_state = self.state_regressor(enc_seq.detach())
+        if hp["attach_cost_mdl"] and hp["run_cost_mdl"] and phase == "train":
+            start, end, gt_cost = CostModel.sample_targets(
+                generator, enc_seq, inputs.traj_seq, inputs.end_ind)
+            aux.cost = self.cost_mdl(start, end)
+            aux.cost_target = gt_cost
+        return aux
+
+    def aux_losses(self, inputs: AttrDict, outputs: AttrDict) -> AttrDict:
+        hp = self.hp
+        losses = AttrDict()
+        if hp["regress_length"] and "seq_len_logits" in outputs:
+            losses.update(LengthPredictor.loss(outputs, inputs.end_ind,
+                                               hp["length_pred_weight"]))
+        if "actions" in outputs and "actions" in inputs:
+            losses.update(InverseModel.loss(outputs.actions, inputs.actions,
+                                            inputs.pad_mask))
+        if "pair_action" in outputs:
+            losses.action_reconst = l2_loss(outputs.pair_action,
+                                            outputs.pair_action_target)
+        if "cost" in outputs:
+            losses.update(CostModel.loss(outputs.cost, outputs.cost_target))
+        if "regressed_state" in outputs and "traj_seq_states" in inputs:
+            n = outputs.regressed_state.shape[1]
+            losses.state_regression = l2_loss(
+                outputs.regressed_state, inputs.traj_seq_states[:, :n],
+                weights=inputs.pad_mask[:, :n, None])
+        return losses
+
+    def kl_weight(self, step):
+        return kl_weight_at(step, self.hp["kl_weight"],
+                            self.hp.get("kl_weight_burn_in", None))
+
+    def assemble_total(self, inputs: AttrDict, losses: AttrDict) -> AttrDict:
+        """total = sum(w * v) / prod(traj_seq.shape[1:]) (base_gcp.py:294-304);
+        nll = dense_img_rec + kl, logged at weight 0 (base_gcp.py:289-290)."""
+        if "dense_img_rec" in losses and "kl" in losses:
+            losses.nll = LossTerm(losses.dense_img_rec.value + losses.kl.value,
+                                  weight=0.0)
+        numel = 1
+        for s in inputs.traj_seq.shape[1:]:
+            numel *= s
+        losses.total = LossTerm(total_loss(losses, numel), weight=0.0)
+        return losses

@@ -213,13 +213,17 @@ class LSTMStack(nn.Module):
     [..., n_layers * 2 * size], [c; h] per layer, so tree levels can
     interleave and fuse states as plain tensors. Each layer is an
     `nn.LSTMCell` (gates i, f, g, o); flax's OptimizedLSTMCell has no input
-    bias, so `bias_ih` holds zeros."""
+    bias, so `bias_ih` holds zeros and is frozen (trained, it would move
+    the gate bias twice per step)."""
 
     def __init__(self, in_size: int, size: int, n_layers: int):
         super().__init__()
         self.size, self.n_layers = size, n_layers
         self.optimized_lstm_cell = nn.ModuleList(
             nn.LSTMCell(in_size if i == 0 else size, size) for i in range(n_layers))
+        for cell in self.optimized_lstm_cell:
+            nn.init.zeros_(cell.bias_ih)
+            cell.bias_ih.requires_grad_(False)
 
     def forward(self, packed: torch.Tensor, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,9 +7,10 @@ levels is one batched call over all 2^d nodes of that level: prior ->
 parent tensors are built by `interleave`. All 2^L - 1 nodes are then decoded
 in one folded pass through the conv pyramid.
 
-Ported so far: the prior rollout, `phase` 'test' or 'plan' with
-`mode='prior'`. Training (`phase='train'`, `mode='posterior'`) is ROADMAP
-queue 1, item 6.
+Ported: the prior rollout (`mode='prior'`, `phase` 'test' or 'plan') and
+training (`phase='train'`, `mode='posterior'`): posterior latents from the
+matched inference, balanced matching, the reconstruction/KL/entropy and
+existence losses, the auxiliary models and the loss total.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 import torch.nn as nn
 
 from video_gcp_torch.core.attrdict import AttrDict
-from video_gcp_torch.core.distributions import Gaussian
+from video_gcp_torch.core.distributions import Gaussian, safe_entropy
+from video_gcp_torch.core.losses import kl_divergence_loss, penalty_loss
 from video_gcp_torch.evaluation.eval_binding import basic_timeline_index
 from video_gcp_torch.models.base import BaseGCPModel
 from video_gcp_torch.models.binding import BalancedBinding
@@ -59,18 +61,24 @@ class TreeLevel(nn.Module):
                                     final_activation="tanh")
 
     def forward(self, inputs: AttrDict, e_l, e_r, hidden_l, hidden_r, t_l, t_r,
-                z_ext: Optional[torch.Tensor],
+                z_ext: Optional[torch.Tensor], mode: str,
                 generator: Optional[torch.Generator]) -> AttrDict:
         sg = AttrDict()
         sg.p_z = self.prior(e_l, e_r)
         sg.match_timesteps = (t_l + t_r) / 2.0
-        if z_ext is not None:
+        if z_ext is None and mode == "posterior":
+            # q(z | e_l, e_r, the sequence at the node's timestep)
+            sg.update(self.inference(inputs.inf_enc_seq, e_l, e_r,
+                                     sg.match_timesteps))
+            z = sg.q_z.sample(generator)
+        elif z_ext is not None:
             # injected latents (planner): standard normal mapped through the
             # learned prior (tree_module.py:81-82)
             z = sg.p_z.reparametrize(z_ext) if self.learned_prior else z_ext
         else:
             z = sg.p_z.sample(generator)
-        sg.q_z = sg.p_z  # prior mode: q is the prior
+        if "q_z" not in sg:
+            sg.q_z = sg.p_z  # prior mode: q is the prior
 
         pred_inputs = [e_l, e_r, z]
         if self.hp["context_every_step"]:
@@ -116,7 +124,7 @@ class TreeModel(BaseGCPModel):
             raise NotImplementedError(hp["matching_type"])
 
     def predict_sequence(self, inputs: AttrDict, outputs: AttrDict,
-                         end_ind: torch.Tensor,
+                         end_ind: torch.Tensor, mode: str,
                          generator: Optional[torch.Generator]) -> AttrDict:
         b = inputs.e_0.shape[0]
         e_l, e_r = inputs.e_0[:, None], inputs.e_g[:, None]
@@ -132,7 +140,8 @@ class TreeModel(BaseGCPModel):
         for d in range(self.depth):
             level = self.tree_levels[d if self.hp["untied_layers"] else 0]
             sg = level(inputs, e_l, e_r, hidden_l, hidden_r, t_l, t_r,
-                       None if z_layers is None else z_layers[d], generator)
+                       None if z_layers is None else z_layers[d], mode,
+                       generator)
             levels.append(sg)
             if d + 1 < self.depth:
                 t_mid = sg.match_timesteps
@@ -159,28 +168,62 @@ class TreeModel(BaseGCPModel):
 
     def forward(self, inputs: AttrDict, phase: str = "test",
                 mode: str = "prior", pred_length: bool = False,
-                generator: Optional[torch.Generator] = None) -> AttrDict:
-        """Prior rollout. `inputs` holds NHWC start/goal images I_0, I_g
-        (uint8 or [-1, 1] floats), optionally end_ind [B] and injected
-        depth-first latents z [B, 2^L - 1, nz_vae]. `generator` drives every
-        random draw (the predicted length and non-injected latents); without
-        one the length is the argmax and z must be injected."""
-        if phase == "train" or mode == "posterior":
-            raise NotImplementedError(
-                "training / posterior inference is not ported yet; ROADMAP "
-                "queue 1, item 6")
-        if phase not in ("test", "plan") or mode != "prior":
+                generator: Optional[torch.Generator] = None,
+                step=0) -> AttrDict:
+        """`inputs` holds NHWC start/goal images I_0, I_g (uint8 or [-1, 1]
+        floats), optionally end_ind [B], injected depth-first latents
+        z [B, 2^L - 1, nz_vae], and for training the batch of the data
+        loader (traj_seq, pad_mask, actions, traj_seq_states). `generator`
+        drives every random draw: the predicted length (prior mode), the
+        non-injected latents and the auxiliary models' index pairs; without
+        one the length is the argmax and z must be injected. With
+        phase='train' and traj_seq given, `outputs.losses` holds every loss
+        term and the total; `step` sets the KL weight's burn-in."""
+        if phase not in ("train", "test", "plan") or mode not in ("prior", "posterior"):
             raise ValueError(f"unknown phase/mode {phase!r}/{mode!r}")
+        if mode == "posterior" and "traj_seq" not in inputs:
+            raise ValueError("mode='posterior' infers latents from inputs.traj_seq")
         inputs = self.run_encoder(self.preprocess_inputs(inputs))
         outputs = AttrDict()
-        end_ind = self.get_end_ind(inputs, outputs, pred_length, generator)
-        self.predict_sequence(inputs, outputs, end_ind, generator)
+        end_ind = self.get_end_ind(inputs, outputs, pred_length,
+                                   None if mode == "posterior" else generator)
+        self.predict_sequence(inputs, outputs, end_ind, mode, generator)
         outputs.existence_logits = self.binding.prune_logits(outputs.tree.e_g_prime)
         outputs.prune_keep = self.binding.prune_mask(outputs.existence_logits)
-        outputs.losses = AttrDict()
+        losses = AttrDict()
+        if "traj_seq" in inputs and phase == "train":
+            self.compute_matching(inputs, outputs)
+            losses = self.compute_losses(inputs, outputs, step)
+            losses.update(self.binding.loss(outputs))
+            # the matched latent timeline feeds the auxiliary models
+            idx = torch.argmax(outputs.gt_match_dists, dim=1)  # [B, T]
+            rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+            inputs.model_enc_seq = outputs.tree.e_g_prime[rows, idx]
+            outputs.update(self.run_aux_models(inputs, phase, generator))
+            losses.update(self.aux_losses(inputs, outputs))
+            losses = self.assemble_total(inputs, losses)
         if phase == "plan":
             outputs.update(self.plan_outputs(outputs))
+        outputs.losses = losses
         return outputs
+
+    def compute_matching(self, inputs: AttrDict, outputs: AttrDict) -> None:
+        """Match tree nodes to GT frames (tree_module.py:132-147)."""
+        w = self.binding.get_w(inputs)
+        outputs.gt_match_dists = w
+        outputs.tree.match_dist = w
+        outputs.entropy = safe_entropy(w, dim=-1)
+        outputs.p_n = torch.clamp(w.sum(2), 0.0, 1.0)
+
+    def compute_losses(self, inputs: AttrDict, outputs: AttrDict, step) -> AttrDict:
+        hp = self.hp
+        losses = self.binding.reconstruction_loss(inputs, outputs, self.log_sigma())
+        losses.kl = kl_divergence_loss(outputs.tree.q_z, outputs.tree.p_z,
+                                       weight=self.kl_weight(step),
+                                       free_nats_per_dim=hp["free_nats"],
+                                       breakdown=1)
+        losses.entropy = penalty_loss(outputs.entropy, weight=hp["entropy_weight"])
+        return losses
 
     def plan_outputs(self, outputs: AttrDict) -> AttrDict:
         """Planner-facing outputs [B, T, ...], valid up to outputs.end_ind:

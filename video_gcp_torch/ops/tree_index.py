@@ -56,9 +56,7 @@ def breadthfirst2depthfirst(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
 def depthfirst2layers(x: torch.Tensor, dim: int = 1):
     """Split a df node axis into per-level tensors, top level first; level d
     has 2^d nodes in left-to-right order (tree_utils.py:222-232)."""
-    depth = _depth(x, dim)
-    bf = depthfirst2breadthfirst(x, dim)
-    return list(torch.split(bf, [2 ** d for d in range(depth)], dim=dim))
+    return split_by_layer_bf(depthfirst2breadthfirst(x, dim), dim)
 
 
 def interleave(t1: torch.Tensor, t2: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -79,3 +77,17 @@ def balanced_timesteps(depth: int, end_ind: torch.Tensor) -> torch.Tensor:
     alpha = torch.as_tensor(alpha, device=end_ind.device)
     e = end_ind.to(torch.float32)[:, None]
     return -1.0 + (e + 2.0) * alpha[None, :]
+
+
+def split_by_layer_bf(x: torch.Tensor, dim: int = 1, depth: int = None):
+    """Split a bf node axis into per-level tensors (tree_utils.py:155-163)."""
+    if depth is None:
+        depth = _depth(x, dim)
+    return list(torch.split(x, [2 ** d for d in range(depth)], dim=dim))
+
+
+def per_level_means(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Mean of a bf node-axis tensor per tree level -> [depth] (layerwise
+    loss logging, tree_module.py:159-169)."""
+    dim = dim % x.dim()
+    return torch.stack([p.mean() for p in split_by_layer_bf(x, dim)])

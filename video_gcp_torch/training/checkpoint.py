@@ -1,4 +1,10 @@
-"""Weights: the flat pretrained npz reader and the flax -> torch bridge.
+"""Checkpoints and weights (training/checkpoint.py of the JAX package):
+epoch-named training checkpoints with 'latest' resolution, the flat
+pretrained npz reader, and the flax -> torch bridge.
+
+Training checkpoints live in `{exp_path}/weights/weights_ep{N}/` as one torch
+state file (model, optimizer, step) in place of orbax's directory
+(checkpoint_handler.py:14-184 of the reference).
 
 The bridge maps a flax parameter tree onto the port's `state_dict` by one
 naming rule (see models/nets.py): the flax auto-name `Name_k` becomes the
@@ -21,8 +27,9 @@ layout by the kind of their flax module:
 """
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -114,3 +121,66 @@ def flax_to_torch(params_tree) -> Dict[str, torch.Tensor]:
         out[f"{base}.bias_hh"] = np.concatenate([p[("h" + g, "bias")] for g in _GATES])
         out[f"{base}.bias_ih"] = np.zeros_like(out[f"{base}.bias_hh"])
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+STATE_FILE = "state.pt"
+
+
+def weights_dir(exp_path) -> str:
+    return os.path.join(exp_path, "weights")
+
+
+def ckpt_name(epoch: int) -> str:
+    return f"weights_ep{epoch}"
+
+
+def get_epochs(exp_path):
+    wd = weights_dir(exp_path)
+    if not os.path.isdir(wd):
+        return []
+    return sorted(int(m.group(1)) for m in
+                  (re.fullmatch(r"weights_ep(\d+)", d) for d in os.listdir(wd)) if m)
+
+
+def resolve_resume(resume, exp_path) -> Optional[str]:
+    """'latest' | epoch number | checkpoint directory | pretrained .npz ->
+    a path, or None when there is nothing to resume from."""
+    if resume is None or resume == "none":
+        return None
+    if isinstance(resume, str) and os.path.isdir(resume):
+        return resume
+    if isinstance(resume, str) and resume.endswith(".npz") and os.path.isfile(resume):
+        return resume
+    eps = get_epochs(exp_path)
+    if not eps:
+        return None
+    if resume == "latest":
+        epoch = eps[-1]
+    else:
+        epoch = int(resume)
+        if epoch not in eps:
+            raise ValueError(f"No checkpoint for epoch {epoch} in {exp_path}")
+    return os.path.join(weights_dir(exp_path), ckpt_name(epoch))
+
+
+def save_checkpoint(exp_path, epoch: int, model, optimizer, step: int) -> str:
+    """{model, optimizer, step} under weights/weights_ep{epoch}/; written to a
+    temporary name first, so a reader never sees half a file."""
+    path = os.path.join(weights_dir(exp_path), ckpt_name(epoch))
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(dict(model=model.state_dict(), optimizer=optimizer.state_dict(),
+                    step=int(step)), tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    return path
+
+
+def load_checkpoint(path, model, optimizer=None) -> int:
+    """Restore a checkpoint directory into `model` (strictly) and, if given,
+    `optimizer`; returns the step."""
+    state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    model.load_state_dict(state["model"], strict=True)
+    if optimizer is not None:
+        optimizer.load_state_dict(state["optimizer"])
+    return state["step"]

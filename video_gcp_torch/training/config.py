@@ -8,12 +8,17 @@ executed here with an import hook scoped to their own globals: `video_gcp_tpu.X`
 resolves to `video_gcp_torch.X`, and `experiments.*` config modules are
 executed from the checkout through the same hook. Nothing is written to
 `sys.modules`, so the JAX package can be imported in the same process.
+Environment: GCP_DATA_DIR and GCP_EXP_DIR (README.md:37-40), under the
+temporary directory when unset.
 """
 from __future__ import annotations
 
 import builtins
 import importlib
+import os
+import tempfile
 import types
+from datetime import datetime
 from pathlib import Path
 
 from video_gcp_torch.core.attrdict import AttrDict
@@ -70,6 +75,45 @@ def _experiments_root(conf_dir: Path) -> Path:
     raise ValueError(f"{conf_dir} is not inside an experiments/ directory")
 
 
+def trainer_default_hparams() -> ParamDict:
+    """gcp_builder._default_hparams (gcp_builder.py:252-272)."""
+    return ParamDict(
+        model=None,
+        logger=None,
+        dataset_name=None,
+        batch_size=64,
+        exp_path=None,
+        num_epochs=200,
+        epoch_cycles_train=1,
+        optimizer="radam",
+        lr=None,
+        gradient_clip=None,
+        momentum=0,
+        adam_beta=0.9,
+        metric_pruning_scheme="dtw",
+        top_of_100_eval=True,
+        n_rooms=None,
+    )
+
+
+def get_data_dir() -> str:
+    return os.environ.get("GCP_DATA_DIR",
+                          os.path.join(tempfile.gettempdir(), "gcp_data"))
+
+
+def get_exp_dir() -> str:
+    return os.environ.get("GCP_EXP_DIR",
+                          os.path.join(tempfile.gettempdir(), "gcp_experiments"))
+
+
+def get_dataset_path(dataset_name: str) -> str:
+    return os.path.join(get_data_dir(), dataset_name)
+
+
+def datetime_str() -> str:
+    return datetime.now().strftime("_%Y-%m-%d_%H-%M-%S")
+
+
 def dataset_config(dataset_name: str) -> AttrDict:
     """The port's bundled dataset config (dataset-spec numbers only)."""
     module = f"{_PORT_PKG}.data.configs.{dataset_name}"
@@ -81,37 +125,61 @@ def dataset_config(dataset_name: str) -> AttrDict:
         return AttrDict(dataset_spec=AttrDict())
 
 
-def load_config(conf_dir) -> AttrDict:
-    """Load `<conf_dir>/conf.py` plus the dataset spec into one bundle.
+def _merge(data_conf: AttrDict, src) -> None:
+    for key, val in src.items():
+        if key == "dataset_spec":
+            data_conf.dataset_spec.update(val)
+        else:
+            data_conf[key] = val
 
-    :return: AttrDict(configuration, model_config, data_conf, conf_path)
+
+def build_data_conf(dataset_name: str, override=None) -> AttrDict:
+    """The dataset directory's dataset_spec.py, when there is one, merged
+    with `override` (gcp_builder.py:158-170), which defaults to the port's
+    bundled config of the dataset."""
+    data_conf = AttrDict(dataset_spec=AttrDict())
+    spec_path = Path(get_dataset_path(dataset_name)) / "dataset_spec.py"
+    if spec_path.is_file():
+        spec = _ConfigImporter(spec_path.parent).exec_file(spec_path, "dataset_spec")
+        data_conf.dataset_spec = AttrDict(spec.dataset_spec)
+    _merge(data_conf, dataset_config(dataset_name) if override is None else override)
+    return data_conf
+
+
+def load_config(conf_dir) -> AttrDict:
+    """Load `<conf_dir>/conf.py` plus the dataset config into one bundle
+    (training/config.py:load_config of the JAX package).
+
+    :return: AttrDict(configuration, model_config, data_conf, conf_path,
+        exp_name); `configuration` holds the trainer defaults overwritten by
+        the conf, `exp_name` is the conf path below experiments/.
     """
     conf_dir = Path(conf_dir).resolve()
     conf_file = conf_dir / "conf.py"
     if not conf_file.is_file():
         raise ValueError(f"Config file not found: {conf_file}")
-    conf = _ConfigImporter(_experiments_root(conf_dir)).exec_file(conf_file, "conf")
+    root = _experiments_root(conf_dir)
+    conf = _ConfigImporter(root).exec_file(conf_file, "conf")
 
-    configuration = AttrDict(conf.configuration)
+    configuration = trainer_default_hparams().overwrite(conf.configuration)
     model_config = AttrDict(conf.model_config)
-    data_conf = AttrDict(dataset_spec=AttrDict())
-    sources = []
+    override = getattr(conf, "data_config", None)
     if configuration.get("dataset_name") is not None:
-        sources.append(dataset_config(configuration["dataset_name"]))
-    if hasattr(conf, "data_config"):
-        sources.append(conf.data_config)
-    for src in sources:
-        for key, val in src.items():
-            if key == "dataset_spec":
-                data_conf.dataset_spec.update(val)
-            else:
-                data_conf[key] = val
+        data_conf = build_data_conf(configuration["dataset_name"], override)
+    else:
+        data_conf = AttrDict(dataset_spec=AttrDict())
+        _merge(data_conf, override or {})
+    data_conf.setdefault("fps", 4)
     # merge dataset dims into the model config (gcp_builder.py:68)
     for key in ("max_seq_len", "n_actions", "state_dim"):
         if key in data_conf.dataset_spec:
             model_config.setdefault(key, data_conf.dataset_spec[key])
+    if "dataset_class" in data_conf.dataset_spec:
+        model_config.setdefault("dataset_class",
+                                data_conf.dataset_spec["dataset_class"])
     return AttrDict(configuration=configuration, model_config=model_config,
-                    data_conf=data_conf, conf_path=str(conf_dir))
+                    data_conf=data_conf, conf_path=str(conf_dir),
+                    exp_name=str(conf_dir.relative_to(root / "experiments")))
 
 
 def build_hparams(bundle: AttrDict) -> ParamDict:
