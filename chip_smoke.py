@@ -6,8 +6,10 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 1. Build: compiles kernels K1 (GroupNorm+LeakyReLU forward) and K2 (its
-   backward), both in video_gcp_torch/csrc/fused_gn.cu, with nvcc for sm_90a
-   and prints the build time and the ptxas report.
+   backward), both in video_gcp_torch/csrc/fused_gn.cu, and K3 (the
+   soft-DTW wavefront), video_gcp_torch/csrc/soft_dtw.cu, with nvcc for
+   sm_90a, one nvcc per source, started together; prints the build time and
+   both ptxas reports.
 2. K1 phase: K1 against its plain PyTorch twin on the card at every
    GroupNorm site of the 9-room GCP-tree (5 encoder, 5 decoder) at batch 16
    and at the CEM batch of 100 candidates, in f32 and bf16, plus the largest
@@ -22,7 +24,13 @@ Run from the root of the repository, with no arguments:
    (fused_gn.clear_of_kink) so that both sign tests agree. Prints the same
    times; the yardstick is the autograd backward of F.group_norm +
    F.leaky_relu.
-4. Slice phase (serving): load_model() of 9room/gcp_tree with the ep74
+4. K3 phase: K3 against its twin on the card at the adaptive training
+   shape [32, 127, 100] (2B rows of 127 nodes x 100 frames) and at the
+   largest shape the repo names, [32, 511, 500], with mixed ends: the
+   accumulated values within 1e-4 of max(1, |D|), w within 1e-4, and no
+   mass past an end. Prints the kernel's and the twin's time (CUDA events,
+   median of 25), the bound, the diagonals and the time per diagonal.
+5. Slice phase (serving): load_model() of 9room/gcp_tree with the ep74
    weights on the card; two 'test'/'prior' rollouts at B=16 (cold, then
    warm); three planner calls ('plan', predicted length) of 100 candidates
    with fresh latents from a seeded torch.Generator on the card, as the CEM
@@ -30,7 +38,7 @@ Run from the root of the repository, with no arguments:
    finite outputs, and the first 2 samples of the last rollout and the first
    2 candidates of the last plan call against the same port run on the CPU;
    prints each call's time and the plan calls' peak device memory.
-5. Train phase: the trainer on the card, as `python -m
+6. Train phase: the trainer on the card, as `python -m
    video_gcp_torch.training.train --path experiments/prediction/9room/gcp_tree
    --resume <ep74 npz> --feed_random_data 1 --num_epochs 1
    --skip_first_val 1 --deterministic 1` runs it: 32 steps at B=16, T=100.
@@ -41,6 +49,16 @@ Run from the root of the repository, with no arguments:
    examples of the first batch, with the same injected noise, on the card
    and on the CPU: every loss term and every gradient agree within the
    tolerances of tests/test_torch_train.py.
+7. Adaptive train phase: the trainer on the card, as `python -m
+   video_gcp_torch.training.train --path
+   experiments/prediction/9room/gcp_adaptive --feed_random_data 1
+   --num_epochs 1 --skip_first_val 1 --deterministic 1` runs it: 32 steps
+   at B=16, T=100 from the port's initialisation (no checkpoint). Checks
+   20 K1, 20 K2 and 1 K3 launch per step, finite losses and gradients, that
+   every parameter with a gradient moved; prints the warm ms per step,
+   training frames/s, the peak device memory and the soft-DTW stability gap
+   of the first and last step. Then one step of the trained model on the
+   first 2 examples of the first batch, card against CPU, as in 6.
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Any failure exits non-zero with no
@@ -48,10 +66,12 @@ result line, as does a host without CUDA or a directory without the port.
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -59,6 +79,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 CONF = ROOT / "experiments/prediction/9room/gcp_tree"
 WEIGHTS = CONF / "pretrained_ep74.npz"
+ADAPTIVE_CONF = ROOT / "experiments/prediction/9room/gcp_adaptive"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -80,6 +101,11 @@ K2_SHAPES = ([((TRAIN_B * TRAIN_T,) + s, "float32") for s in ENC_SITES]
                 ((TRAIN_B * TRAIN_T, 32, 32, 16), "bfloat16")])  # step at 64x64
 K2_FLOPS_PER_ELEMENT = 20  # three passes: stats, sums, dx
 TOLS_TRAIN = dict(loss=1e-4, grad=2e-3)  # tests/test_torch_train.py, ep74
+# K3: 2B rows of the adaptive training step; the largest shape the repo
+# names (video_gcp_tpu/ops/pallas_dtw.py:7-9: 511 nodes x 500 frames)
+K3_SHAPES = [(2 * TRAIN_B, N_NODES, TRAIN_T), (2 * TRAIN_B, 511, 500)]
+K3_OPS_PER_CELL = 10  # two maxima, subtract, abs, exp, log1p, two adds, select
+TOL_K3 = 1e-4  # w absolute (tests/test_torch_soft_dtw.py); D relative to max(1, |D|)
 EXP_DIR = ROOT / "video_gcp_torch/_build/chip_smoke_exp"  # git-ignored
 
 
@@ -217,6 +243,50 @@ def k2_phase(torch, F, fused_gn):
     return rows
 
 
+def k3_bound(rows, r, c):
+    cells = rows * r * c
+    t_bytes = 2 * cells * 4 / HBM_BYTES_PER_S  # read C once, write D once
+    t_ops = K3_OPS_PER_CELL * cells / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k3_phase(torch, soft_dtw):
+    """K3 against its twin on the card, and both times."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    rows_out = []
+    print("K3 soft_dtw_gak: [rows, r, c] | ms plain_ms bound_ms | n_diag us_per_diag | "
+          "max err w, D (relative to max(1, |D|))")
+    for rows, r, c in K3_SHAPES:
+        b = rows // 2
+        cost = torch.rand(b, r, c, generator=gen, device="cuda") * 2
+        ends = torch.tensor([c - 1, int(c * 0.7), int(c * 0.4)], device="cuda")
+        ends = ends[torch.arange(b, device="cuda") % 3]  # mixed ends
+        comb, begin = soft_dtw.dp_rows(cost, ends)
+        got = soft_dtw.gak(comb, begin)
+        want = soft_dtw.gak_reference(comb, begin)
+        torch.cuda.synchronize()
+        finite = want > soft_dtw.NEG_INF / 2
+        if not torch.equal(got > soft_dtw.NEG_INF / 2, finite) or not torch.isfinite(got).all():
+            fail(f"K3 at {[rows, r, c]}: the alignment region differs from the twin's")
+        d_err = ((got - want).abs()[finite] / want.abs()[finite].clamp(min=1)).max().item()
+        w = soft_dtw.posterior(got, comb, ends)
+        w_err = (w - soft_dtw.posterior(want, comb, ends)).abs().max().item()
+        past = max(w[k, :, int(ends[k]) + 1:].abs().sum().item() for k in range(b))
+        if not (d_err < TOL_K3 and w_err < TOL_K3 and past < 1e-6):
+            fail(f"K3 disagrees with its twin at {[rows, r, c]}: D {d_err}, w {w_err}, "
+                 f"mass past the ends {past}")
+        ms = time_ms(torch, lambda: soft_dtw.gak(comb, begin))
+        plain_ms = time_ms(torch, lambda: soft_dtw.gak_reference(comb, begin))
+        bound_ms, bound_by = k3_bound(rows, r, c)
+        n_diag = r + c - 1
+        rows_out.append(dict(shape=[rows, r, c], dtype="float32", ms=ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=w_err, n_diag=n_diag))
+        print(f"K3 {[rows, r, c]} | {ms:.4f} {plain_ms:.4f} {bound_ms:.5f} | {n_diag} "
+              f"{ms * 1e3 / n_diag:.4f} | {w_err:.3e} {d_err:.3e}")
+    return rows_out
+
+
 def max_diff(a, b):
     return (a.detach().float().cpu() - b.detach().float().cpu()).abs().max().item()
 
@@ -352,11 +422,13 @@ class SharedNoise:
                 fail(f"noise draws differ between runs: {self.pos}")
 
 
-def train_phase(torch, fused_gn, trainer_mod):
-    """The JAX command's training run on the card, through ModelTrainer."""
+def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_step):
+    """The JAX command's training run of `conf` on the card, through
+    ModelTrainer, from `resume` (--resume)."""
+    tag = "train" if k3_per_step == 0 else "train_adaptive"
     os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
     args = trainer_mod.parse_args([
-        "--path", str(CONF), "--resume", str(WEIGHTS), "--feed_random_data", "1",
+        "--path", str(conf), "--resume", str(resume), "--feed_random_data", "1",
         "--num_epochs", "1", "--skip_first_val", "1", "--deterministic", "1",
         "--verbose_timing", "1"])
     trainer = trainer_mod.ModelTrainer(args)  # device 'cuda', the default
@@ -365,15 +437,17 @@ def train_phase(torch, fused_gn, trainer_mod):
     real_step = trainer_mod.train_step
 
     def counted_step(*a, **kw):
-        k1, k2 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES
+        k1, k2, k3 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES
         metrics = real_step(*a, **kw)
-        steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2, metrics))
+        steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2,
+                      soft_dtw.LAUNCHES - k3, metrics))
         return metrics
 
     trainer_mod.train_step = counted_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = fused_gn.BWD_DY_COPIES = 0
+    soft_dtw.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         trainer.run()
@@ -381,53 +455,63 @@ def train_phase(torch, fused_gn, trainer_mod):
         trainer_mod.train_step = real_step
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
     copies = fused_gn.BWD_DY_COPIES
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if len(steps) != TRAIN_STEPS or trainer.step != TRAIN_STEPS:
-        fail(f"train: {len(steps)} steps, expected {TRAIN_STEPS}")
-    per_step = sorted({(a, b) for a, b, _ in steps})
-    if per_step != [(NORMS_PER_STEP, NORMS_PER_STEP)]:
-        fail(f"train: K1/K2 launches per step {per_step}, expected {NORMS_PER_STEP} each")
-    for i, (_, _, m) in enumerate(steps):
+        fail(f"{tag}: {len(steps)} steps, expected {TRAIN_STEPS}")
+    per_step = sorted({(a, b, c) for a, b, c, _ in steps})
+    if per_step != [(NORMS_PER_STEP, NORMS_PER_STEP, k3_per_step)]:
+        fail(f"{tag}: K1/K2/K3 launches per step {per_step}, expected "
+             f"{(NORMS_PER_STEP, NORMS_PER_STEP, k3_per_step)}")
+    for i, (_, _, _, m) in enumerate(steps):
         if not bool(m["grads_finite"]):
-            fail(f"train: non-finite gradients at step {i}")
+            fail(f"{tag}: non-finite gradients at step {i}")
         bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
         if bad:
-            fail(f"train: non-finite {bad} at step {i}")
+            fail(f"{tag}: non-finite {bad} at step {i}")
+    # an attention key bias adds q.b to every logit of a query, which the
+    # softmax cancels: its gradient is rounding noise, too small to move it
     unchanged = [n for n, p in trainer.model.named_parameters()
                  if p.grad is not None and p.grad.abs().sum() > 0
-                 and torch.equal(p.detach(), before[n])]
+                 and torch.equal(p.detach(), before[n])
+                 and not (".attention_layers." in n and n.endswith(".dense.1.bias"))]
     if unchanged:
-        fail(f"train: parameters with a gradient did not change: {unchanged}")
+        fail(f"{tag}: parameters with a gradient did not change: {unchanged}")
     static = [n for n, p in trainer.model.named_parameters()
               if torch.equal(p.detach(), before[n])]
     warm = statistics.median(trainer.step_seconds[3:TRAIN_STEPS])
-    first = {k: float(v) for k, v in steps[0][2].items() if v.dim() == 0}
-    last = {k: float(v) for k, v in steps[-1][2].items() if v.dim() == 0}
-    print(f"train: {TRAIN_STEPS} steps of B={TRAIN_B} T={TRAIN_T} in {wall:.2f} s "
-          f"(checkpoint included); K1/K2 launches per step {per_step[0]}, total {launches}")
-    print(f"train: step 0 {trainer.step_seconds[0] * 1e3:.2f} ms; warm ms per step "
+    first = {k: float(v) for k, v in steps[0][3].items() if v.dim() == 0}
+    last = {k: float(v) for k, v in steps[-1][3].items() if v.dim() == 0}
+    print(f"{tag}: {conf.name}, {TRAIN_STEPS} steps of B={TRAIN_B} T={TRAIN_T} in "
+          f"{wall:.2f} s (checkpoint included); K1/K2/K3 launches per step "
+          f"{per_step[0]}, total {launches}")
+    print(f"{tag}: step 0 {trainer.step_seconds[0] * 1e3:.2f} ms; warm ms per step "
           f"(median of steps 3-31) {warm * 1e3:.2f}; training frames/s "
           f"{TRAIN_B * TRAIN_T / warm:.1f}; peak device memory {peak_gib:.3f} GiB; "
           f"BWD_DY_COPIES {copies}")
-    print(f"train: parameters that did not move (no gradient): {static}")
-    print("train: first step " + json.dumps({k: float(f"{v:.6g}") for k, v in first.items()}))
-    print("train: last step " + json.dumps({k: float(f"{v:.6g}") for k, v in last.items()}))
+    print(f"{tag}: parameters that did not move (no gradient): {static}")
+    print(f"{tag}: first step " + json.dumps({k: float(f"{v:.6g}") for k, v in first.items()}))
+    print(f"{tag}: last step " + json.dumps({k: float(f"{v:.6g}") for k, v in last.items()}))
+    if k3_per_step:
+        print(f"{tag}: soft-DTW stability gap, first step "
+              f"{first['soft_dtw_stability_gap']:.6g}, last step "
+              f"{last['soft_dtw_stability_gap']:.6g}")
     return trainer, launches
 
 
-def train_vs_cpu(torch, load_model, AttrDict, distributions, DataLoader, dataset):
-    """One step of ep74 on the first 2 examples of the trainer's first batch,
-    with the same injected noise, on the card and on the CPU."""
+def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag):
+    """One train step of `make_model(device)` on the first 2 examples of the
+    trainer's first batch, with the same injected noise, on the card and on
+    the CPU."""
     first = next(iter(DataLoader(dataset, TRAIN_B, shuffle=True, n_repeat=2,
                                  num_workers=4)))
     batch = AttrDict({k: v[:2] for k, v in first.items()})
     noise = SharedNoise(torch, distributions)
     results = []
     for device in ("cuda", "cpu"):
-        model = load_model(CONF, weights=WEIGHTS, device=device).train()
+        model = make_model(device).train()
         out = noise.run(lambda: model(AttrDict({k: v.to(device) for k, v in batch.items()}),
                                       phase="train", mode="posterior"))
         out.losses.total.value.backward()
@@ -440,10 +524,10 @@ def train_vs_cpu(torch, load_model, AttrDict, distributions, DataLoader, dataset
               for n, g in cpu_g.items()}
     worst = max(grad_d, key=grad_d.get)
     if max(loss_d.values()) >= TOLS_TRAIN["loss"] or grad_d[worst] >= TOLS_TRAIN["grad"]:
-        fail(f"train: card vs CPU losses {loss_d}, worst gradient {worst} {grad_d[worst]}")
-    print("train: card vs CPU, one ep74 step on 2 examples, losses (relative): "
+        fail(f"{tag}: card vs CPU losses {loss_d}, worst gradient {worst} {grad_d[worst]}")
+    print(f"{tag}: card vs CPU, one step on 2 examples, losses (relative): "
           + json.dumps({k: float(f"{v:.3e}") for k, v in loss_d.items()}))
-    print(f"train: card vs CPU, gradients of {len(grad_d)} tensors, worst "
+    print(f"{tag}: card vs CPU, gradients of {len(grad_d)} tensors, worst "
           f"{grad_d[worst]:.3e} ({worst}, relative to its largest CPU gradient)")
 
 
@@ -461,7 +545,7 @@ def main():
         from video_gcp_torch.core.attrdict import AttrDict
         from video_gcp_torch.data.loader import DataLoader
         from video_gcp_torch.load import load_model, set_float32_precision
-        from video_gcp_torch.ops import cuda_build, fused_gn
+        from video_gcp_torch.ops import cuda_build, fused_gn, soft_dtw
         from video_gcp_torch.training import trainer as trainer_mod
     except ImportError as e:
         fail(f"video_gcp_torch is not beside chip_smoke.py: {e}")
@@ -473,22 +557,44 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    fused_gn.load_library()  # raises (non-zero exit) if nvcc fails
-    print(f"build: K1 and K2 ({fused_gn.SOURCE}) in {time.perf_counter() - t0:.1f} s")
-    print(cuda_build.BUILD_LOGS.get(fused_gn.SOURCE, "").strip())
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        builds = [pool.submit(m.load_library) for m in (fused_gn, soft_dtw)]
+        for b in builds:
+            b.result()  # raises (non-zero exit) if nvcc fails
+    print(f"build: K1 and K2 ({fused_gn.SOURCE}), K3 ({soft_dtw.SOURCE}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for source in (fused_gn.SOURCE, soft_dtw.SOURCE):
+        print(cuda_build.BUILD_LOGS.get(source, "").strip())
 
     k1_rows = kernel_phase(torch, F, fused_gn)
     k2_rows = k2_phase(torch, F, fused_gn)
+    k3_rows = k3_phase(torch, soft_dtw)
+    soft_dtw.LAUNCHES = 0  # slice_phase resets K1's and K2's counts
     serve_launches, plan_s = slice_phase(torch, fused_gn, load_model, AttrDict)
-    if fused_gn.BWD_LAUNCHES:
-        fail("K2 launched on the serving path")
-    trainer, (train_k1, train_k2) = train_phase(torch, fused_gn, trainer_mod)
-    train_vs_cpu(torch, load_model, AttrDict, distributions, DataLoader,
-                 trainer.train_loader.dataset)
+    if fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
+        fail("K2 or K3 launched on the serving path")
+    trainer, (train_k1, train_k2, _) = train_phase(
+        torch, fused_gn, soft_dtw, trainer_mod, CONF, WEIGHTS, k3_per_step=0)
+    train_vs_cpu(torch, lambda d: load_model(CONF, weights=WEIGHTS, device=d), AttrDict,
+                 distributions, DataLoader, trainer.train_loader.dataset, "train")
 
-    def line(name, rows, shape, dtype, replaces, by_path):
+    # from the port's initialisation: --resume latest finds no checkpoint
+    shutil.rmtree(EXP_DIR / "prediction/9room/gcp_adaptive", ignore_errors=True)
+    adaptive, (ad_k1, ad_k2, ad_k3) = train_phase(
+        torch, fused_gn, soft_dtw, trainer_mod, ADAPTIVE_CONF, "latest", k3_per_step=1)
+    trained = {k: v.detach().cpu() for k, v in adaptive.model.state_dict().items()}
+
+    def adaptive_model(device):
+        model = load_model(ADAPTIVE_CONF, device=device)
+        model.load_state_dict(trained)
+        return model
+
+    train_vs_cpu(torch, adaptive_model, AttrDict, distributions, DataLoader,
+                 adaptive.train_loader.dataset, "train_adaptive")
+
+    def line(name, rows, shape, dtype, replaces, by_path, source=fused_gn.SOURCE):
         top = next(r for r in rows if r["shape"] == shape and r["dtype"] == dtype)
-        return dict(name=name, route="cuda", source="video_gcp_torch/csrc/fused_gn.cu",
+        return dict(name=name, route="cuda", source=f"video_gcp_torch/csrc/{source}",
                     replaces=replaces, launches=sum(by_path.values()),
                     launches_by_path=by_path,
                     **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -497,9 +603,14 @@ def main():
     # each kernel's line: the main paths' largest site of that kernel in f32
     kernels = [
         line("gn_lrelu_fwd", k1_rows, [CEM_BATCH * N_NODES, 32, 32, 16], "float32",
-             "video_gcp_tpu/ops/fused_gn.py:97", dict(serve=serve_launches, train=train_k1)),
+             "video_gcp_tpu/ops/fused_gn.py:97",
+             dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1)),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
-             "video_gcp_tpu/ops/fused_gn.py:141", dict(serve=0, train=train_k2)),
+             "video_gcp_tpu/ops/fused_gn.py:141",
+             dict(serve=0, train=train_k2, train_adaptive=ad_k2)),
+        line("soft_dtw_gak", k3_rows, list(K3_SHAPES[0]), "float32",
+             "video_gcp_tpu/ops/pallas_dtw.py:29",
+             dict(serve=0, train=0, train_adaptive=ad_k3), source=soft_dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,11 @@ package, so on a machine with the card and without JAX it runs as
 - Gradients reach the conv weights before a norm on the card, and one train
   step of a small GCP-tree on the card matches the CPU with the same noise
   (losses 1e-5 relative, gradients 1e-4 of each parameter's largest).
+- Kernel K3 (soft-DTW wavefront) against its plain twin on the card at the
+  9-room training shape [32, 127, 100] and at small shapes: the accumulated
+  values within 1e-4 of max(1, |D|) where finite, NEG_INF where the twin
+  has it, and w within 1e-4 absolute; `soft_dtw` on a CUDA tensor launches
+  K3 once; a small adaptive train step launches K3 once and matches the CPU.
 """
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ from video_gcp_torch.models.hyperparameters import default_hparams
 from video_gcp_torch.models.tree import TreeModel
 from video_gcp_torch.models.nets import ConvEncoder
 from video_gcp_torch.ops import fused_gn
+from video_gcp_torch.ops import soft_dtw as sdtw
 from video_gcp_torch.parallel.train_step import make_optimizer, train_step
 
 pytestmark = pytest.mark.cuda
@@ -200,6 +206,84 @@ def test_small_train_step_on_card_matches_cpu(card, monkeypatch):
         if v.dim() == 0 and v.dtype != torch.bool:
             assert abs(got[k].item() - v.item()) <= 1e-5 * max(1.0, abs(v.item())), k
     assert bool(got.grads_finite)
+    named = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        if p.requires_grad:
+            w = named[name].grad
+            scale = max(1e-3, w.abs().max().item())
+            assert (p.grad.cpu() - w).abs().max().item() <= 1e-4 * scale, name
+
+
+def _dtw_inputs(card, b, r, c, seed=0):
+    gen = torch.Generator(card).manual_seed(seed)
+    cost = torch.rand(b, r, c, generator=gen, device=card) * 2
+    ends = torch.tensor([c - 1, int(c * 0.7), int(c * 0.4)], device=card)
+    return cost, ends[torch.arange(b, device=card) % 3]
+
+
+@pytest.mark.parametrize("b,r,c", [(16, 127, 100), (3, 15, 9), (2, 31, 20), (1, 7, 7)])
+def test_soft_dtw_kernel_matches_twin(card, b, r, c):
+    cost, ends = _dtw_inputs(card, b, r, c)
+    comb, begin = sdtw.dp_rows(cost, ends)
+    launches = sdtw.LAUNCHES
+    got = sdtw.gak(comb, begin)
+    torch.cuda.synchronize()
+    assert sdtw.LAUNCHES == launches + 1
+    want = sdtw.gak_reference(comb, begin)
+    finite = want > sdtw.NEG_INF / 2
+    assert torch.equal(got > sdtw.NEG_INF / 2, finite)
+    err = (got - want).abs()[finite] / want.abs()[finite].clamp(min=1)
+    assert err.max().item() < 1e-4
+    w = sdtw.posterior(got, comb, ends)
+    assert (w - sdtw.posterior(want, comb, ends)).abs().max().item() < 1e-4
+    for k in range(b):  # no mass past the end
+        assert bool((w[k, :, int(ends[k]) + 1:].abs() < 1e-6).all())
+
+
+def test_soft_dtw_on_a_cuda_tensor_launches_k3(card):
+    cost, ends = _dtw_inputs(card, 4, 15, 10, seed=1)
+    launches = sdtw.LAUNCHES
+    w = sdtw.soft_dtw(cost.requires_grad_(), ends)
+    torch.cuda.synchronize()
+    assert sdtw.LAUNCHES == launches + 1 and w.is_cuda and w.grad_fn is None
+    with pytest.raises(ValueError):  # the kernel takes int32 begins only
+        sdtw.gak(cost.detach(), torch.zeros(4, dtype=torch.int64, device=card))
+
+
+def test_small_adaptive_train_step_on_card_matches_cpu(card, monkeypatch):
+    hp = default_hparams()
+    hp.overwrite(dict(batch_size=2, max_seq_len=10, img_sz=16, hierarchy_levels=4,
+                      matching_type="dtw_image", attentive_inference=True,
+                      learn_matching_temp=False, seq_enc="conv", tree_lstm="sum",
+                      regress_length=True, decoder_distribution="gaussian"))
+    rng = np.random.RandomState(0)
+    normals = [rng.randn(2, 2 ** d, 32).astype(np.float32) for d in range(4)]
+
+    def run(model, batch, device):
+        draws = iter(normals)
+        monkeypatch.setattr(distributions.Gaussian, "sample", lambda g, gen: g.reparametrize(
+            torch.from_numpy(next(draws)).to(g.mu.device)))
+        opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam")
+        return train_step(model, opt, AttrDict({k: v.to(device) for k, v in batch.items()}),
+                          0, None)
+
+    seq = torch.from_numpy((rng.rand(2, 10, 16, 16, 3) * 2 - 1).astype(np.float32))
+    batch = AttrDict(traj_seq=seq, I_0=seq[:, 0], I_g=seq[:, 9], end_ind=torch.tensor([9, 6]),
+                     start_ind=torch.zeros(2, dtype=torch.int64),
+                     pad_mask=(torch.arange(10)[None] <= torch.tensor([[9], [6]])).float())
+    torch.manual_seed(0)
+    cpu = TreeModel(dict(hp))
+    gpu = TreeModel(dict(hp))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(card, memory_format=torch.channels_last)
+    want = run(cpu, batch, "cpu")
+    launches = sdtw.LAUNCHES
+    got = run(gpu, batch, card)
+    torch.cuda.synchronize()
+    assert sdtw.LAUNCHES - launches == 1
+    for k, v in want.items():
+        if v.dim() == 0 and v.dtype != torch.bool:
+            assert abs(got[k].item() - v.item()) <= 1e-5 * max(1.0, abs(v.item())), k
     named = dict(cpu.named_parameters())
     for name, p in gpu.named_parameters():
         if p.requires_grad:

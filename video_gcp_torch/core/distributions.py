@@ -69,6 +69,12 @@ def uniform(shape, generator: torch.Generator, device=None) -> torch.Tensor:
     return torch.rand(shape, generator=generator, device=device)
 
 
+def normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """A nonnegative tensor scaled to sum to 1 along `dim`
+    (blox.torch.dist.normalize; adaptive.py:58)."""
+    return x / (x.sum(dim=dim, keepdim=True) + eps)
+
+
 def safe_entropy(dist: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """Entropy of categorical distributions given as probabilities

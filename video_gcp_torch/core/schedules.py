@@ -15,9 +15,26 @@ def linear_ramp(step, n_steps: int, target: float,
     return start + (target - start) * frac
 
 
+def exponential_decay(step, initial: float, tenthlife: int,
+                      min_limit: float = 0.0) -> torch.Tensor:
+    """Exponential decay with a tenth-life in steps: value(tenthlife) =
+    initial / 10 (blox ExponentialDecayUpdater; adaptive.py:25-26)."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    decay = 0.1 ** (step / max(tenthlife, 1))
+    return torch.clamp(initial * decay, min=min_limit)
+
+
 def kl_weight_at(step, kl_weight: float, burn_in_steps):
     """KL weight: constant, or a linear burn-in when configured
     (base_gcp.py:121-128)."""
     if burn_in_steps is None:
         return kl_weight
     return linear_ramp(step, burn_in_steps, kl_weight)
+
+
+def matching_temp_at(step, temp: float, tenthlife: int, min_limit: float):
+    """Soft-DTW matching temperature: constant when tenthlife == -1, else
+    decaying (adaptive.py:23-26)."""
+    if tenthlife == -1:
+        return temp
+    return exponential_decay(step, temp, tenthlife, min_limit)

@@ -62,7 +62,6 @@ class BaseGCPModel(nn.Module):
         use_convs=True,
         act_cond_inference=False,
         action_conditioned_pred=False,
-        attentive_inference=False,
     )
 
     def __init__(self, hp):

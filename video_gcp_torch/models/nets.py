@@ -1,6 +1,7 @@
 """Network building blocks (models/nets.py of the JAX package), main-path
 subset: GroupNorm+LeakyReLU, MLP, conv encoder/decoder pyramids, Gaussian
-heads, the packed-state LSTM stack and the conv sequence encoder.
+heads, the packed-state LSTM stack, the conv sequence encoder and the
+time-masked multi-head attention of the attentive inference.
 
 Images are NHWC at every public function, as in the JAX package. A conv layer
 sees the same memory as an NCHW tensor in `torch.channels_last` (a permuted
@@ -274,6 +275,62 @@ def build_seq_encoder(hp) -> Optional[nn.Module]:
         return ConvSeqEncoder(hp)
     if kind in ("lstm", "bi-lstm"):
         raise NotImplementedError(
-            f"seq_enc={kind!r} (RecurrentSeqEncoder) is not ported yet; "
-            "ROADMAP queue 1, item 9")
+            f"seq_enc={kind!r} (RecurrentSeqEncoder) is not ported: no config "
+            "of the repository uses it (ROADMAP.md, modules still missing)")
     raise ValueError(f"unknown seq_enc {kind!r}")
+
+
+class MaskedMultiheadAttention(nn.Module):
+    """One layer of time-masked multi-head attention (the JAX package's
+    MaskedMultiheadAttention, blox MultiheadAttention as used by the
+    attentive inference). The query is already projected to nz_attn_key.
+
+    Every node of a batch element attends over the same sequence, so the
+    keys and values are projected once per sequence, [B, T, ...], and the
+    node axis broadcasts; the JAX module projects a copy per node, which
+    gives the same values and, summed over the copies, the same weight
+    gradients. flax's auto-names Dense_0..2 (query, key, value) become
+    `dense.0..2`; `log_attn_temp` is the learned softmax temperature."""
+
+    def __init__(self, hp, d_query: int):
+        super().__init__()
+        self.n_heads = hp.get("n_attention_heads", 1)
+        self.d_key = hp.get("nz_attn_key", hp["nz_enc"])
+        self.nz_enc = hp["nz_enc"]
+        if self.d_key % self.n_heads or self.nz_enc % self.n_heads:
+            raise ValueError(f"{self.n_heads} attention heads do not divide "
+                             f"nz_attn_key={self.d_key} and nz_enc={self.nz_enc}")
+        self.dense = nn.ModuleList([nn.Linear(d_query, self.d_key),
+                                    nn.Linear(self.nz_enc, self.d_key),
+                                    nn.Linear(self.nz_enc, self.nz_enc)])
+        self.temperature = hp.get("attention_temperature", 1.0)
+        if hp.get("learn_attn_temp", True):
+            self.log_attn_temp = nn.Parameter(torch.tensor(math.log(self.temperature)))
+        else:
+            self.log_attn_temp = None
+
+    def forward(self, query: torch.Tensor, keys: torch.Tensor,
+                values: torch.Tensor, start_ind: torch.Tensor,
+                end_ind: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """query [B, N, Dq]; keys and values [B, T, nz_enc]; start_ind and
+        end_ind [B, N], the inclusive span of frames each node attends to.
+        Returns the attended values [B, N, nz_enc] and the attention
+        weights averaged over heads, [B, N, T]."""
+        b, n = query.shape[:2]
+        t, h = keys.shape[1], self.n_heads
+        d_head = self.d_key // h
+        q = self.dense[0](query).reshape(b, n, h, d_head)
+        k = self.dense[1](keys).reshape(b, t, h, d_head)
+        v = self.dense[2](values).reshape(b, t, h, self.nz_enc // h)
+        logits = torch.einsum("bnhd,bthd->bnht", q, k) / math.sqrt(d_head)
+        if self.log_attn_temp is not None:
+            logits = logits / torch.exp(self.log_attn_temp)
+        else:
+            logits = logits / self.temperature
+        t_idx = torch.arange(t, device=query.device)
+        mask = (t_idx >= start_ind[..., None]) & (t_idx <= end_ind[..., None])
+        logits = torch.where(mask[:, :, None, :], logits,
+                             torch.full_like(logits, -1e30))
+        gamma = torch.softmax(logits, dim=-1)  # [B, N, h, T]
+        attended = torch.einsum("bnht,bthd->bnhd", gamma, v)
+        return attended.reshape(b, n, self.nz_enc), gamma.mean(dim=2)

@@ -9,8 +9,9 @@ in one folded pass through the conv pyramid.
 
 Ported: the prior rollout (`mode='prior'`, `phase` 'test' or 'plan') and
 training (`phase='train'`, `mode='posterior'`): posterior latents from the
-matched inference, balanced matching, the reconstruction/KL/entropy and
-existence losses, the auxiliary models and the loss total.
+matched or the attentive inference, balanced or adaptive (soft-DTW)
+matching, the reconstruction/KL/entropy losses, the existence or distance
+predictor's loss, the auxiliary models and the loss total.
 """
 from __future__ import annotations
 
@@ -21,11 +22,11 @@ import torch.nn as nn
 
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.distributions import Gaussian, safe_entropy
-from video_gcp_torch.core.losses import kl_divergence_loss, penalty_loss
+from video_gcp_torch.core.losses import LossTerm, kl_divergence_loss, penalty_loss
 from video_gcp_torch.evaluation.eval_binding import basic_timeline_index
 from video_gcp_torch.models.base import BaseGCPModel
-from video_gcp_torch.models.binding import BalancedBinding
-from video_gcp_torch.models.inference import MatchedInference
+from video_gcp_torch.models.binding import AdaptiveBinding, BalancedBinding
+from video_gcp_torch.models.inference import AttentiveInference, MatchedInference
 from video_gcp_torch.models.nets import MLP, FixedPriorHead, GaussianHead
 from video_gcp_torch.models.tree_lstm import LSTMInitializer, TreeLSTMPredictor
 from video_gcp_torch.ops.tree_index import depthfirst2layers, interleave
@@ -49,7 +50,9 @@ class TreeLevel(nn.Module):
                                       hp["n_processing_layers"])
         else:
             self.prior = FixedPriorHead(nz_vae)
-        self.inference = MatchedInference(hp)
+        self.attentive = hp["attentive_inference"]
+        self.inference = (AttentiveInference(hp) if self.attentive
+                          else MatchedInference(hp))
         pred_in = 2 * nz_enc + nz_vae + (2 * nz_enc if hp["context_every_step"] else 0)
         if hp["tree_lstm"]:
             self.subgoal_pred = TreeLSTMPredictor(hp, hp["tree_lstm"], pred_in)
@@ -67,9 +70,20 @@ class TreeLevel(nn.Module):
         sg.p_z = self.prior(e_l, e_r)
         sg.match_timesteps = (t_l + t_r) / 2.0
         if z_ext is None and mode == "posterior":
-            # q(z | e_l, e_r, the sequence at the node's timestep)
-            sg.update(self.inference(inputs.inf_enc_seq, e_l, e_r,
-                                     sg.match_timesteps))
+            if self.attentive:
+                # q(z | e_l, e_r, attention over the frames of the whole
+                # sequence, or of the node's own segment)
+                if self.hp.get("mask_inf_attention", False):
+                    s_ind, e_ind = torch.floor(t_l), torch.ceil(t_r)
+                else:
+                    s_ind = inputs.start_ind[:, None].expand(t_l.shape)
+                    e_ind = inputs.end_ind[:, None].expand(t_r.shape)
+                sg.update(self.inference(inputs.inf_enc_seq, inputs.inf_enc_key_seq,
+                                         e_l, e_r, s_ind, e_ind))
+            else:
+                # q(z | e_l, e_r, the sequence at the node's timestep)
+                sg.update(self.inference(inputs.inf_enc_seq, e_l, e_r,
+                                         sg.match_timesteps))
             z = sg.q_z.sample(generator)
         elif z_ext is not None:
             # injected latents (planner): standard normal mapped through the
@@ -117,20 +131,15 @@ class TreeModel(BaseGCPModel):
         if hp["matching_type"] == "balanced":
             self.binding = BalancedBinding(hp)
         elif "dtw" in hp["matching_type"]:
-            raise NotImplementedError(
-                "adaptive (soft-DTW) binding is not ported yet; ROADMAP queue "
-                "1, item 9")
+            self.binding = AdaptiveBinding(hp)
         else:
             raise NotImplementedError(hp["matching_type"])
 
     def predict_sequence(self, inputs: AttrDict, outputs: AttrDict,
                          end_ind: torch.Tensor, mode: str,
                          generator: Optional[torch.Generator]) -> AttrDict:
-        b = inputs.e_0.shape[0]
         e_l, e_r = inputs.e_0[:, None], inputs.e_g[:, None]
-        # balanced binding's virtual root bounds (-1, end + 1)
-        t_l = torch.full((b, 1), -1.0, device=e_l.device)
-        t_r = end_ind.to(torch.float32)[:, None] + 1.0
+        t_l, t_r = (t[:, None] for t in self.binding.root_bounds(inputs, end_ind))
         hidden_l = hidden_r = None
         z_layers = None
         if "z" in inputs:
@@ -161,6 +170,8 @@ class TreeModel(BaseGCPModel):
             q_z=Gaussian.cat([l.q_z for l in levels], 1),
             p_z=Gaussian.cat([l.p_z for l in levels], 1),
         )
+        if levels[0].get("gamma") is not None:  # attention weights [B, N, T]
+            tree.gamma = torch.cat([l.gamma for l in levels], 1)
         tree.images, tree.dlm_params = self.decode_seq(tree.e_g_prime,
                                                        inputs.skips)
         outputs.tree = tree
@@ -188,11 +199,13 @@ class TreeModel(BaseGCPModel):
         end_ind = self.get_end_ind(inputs, outputs, pred_length,
                                    None if mode == "posterior" else generator)
         self.predict_sequence(inputs, outputs, end_ind, mode, generator)
-        outputs.existence_logits = self.binding.prune_logits(outputs.tree.e_g_prime)
-        outputs.prune_keep = self.binding.prune_mask(outputs.existence_logits)
+        # existence (balanced) or distance (adaptive) logits
+        logits = self.binding.prune_logits(outputs.tree.e_g_prime)
+        outputs[self.binding.logits_key] = logits
+        outputs.prune_keep = self.binding.prune_mask(logits)
         losses = AttrDict()
         if "traj_seq" in inputs and phase == "train":
-            self.compute_matching(inputs, outputs)
+            self.compute_matching(inputs, outputs, step)
             losses = self.compute_losses(inputs, outputs, step)
             losses.update(self.binding.loss(outputs))
             # the matched latent timeline feeds the auxiliary models
@@ -207,9 +220,9 @@ class TreeModel(BaseGCPModel):
         outputs.losses = losses
         return outputs
 
-    def compute_matching(self, inputs: AttrDict, outputs: AttrDict) -> None:
+    def compute_matching(self, inputs: AttrDict, outputs: AttrDict, step) -> None:
         """Match tree nodes to GT frames (tree_module.py:132-147)."""
-        w = self.binding.get_w(inputs)
+        w = self.binding.get_w(inputs, outputs, step)
         outputs.gt_match_dists = w
         outputs.tree.match_dist = w
         outputs.entropy = safe_entropy(w, dim=-1)
@@ -223,6 +236,11 @@ class TreeModel(BaseGCPModel):
                                        free_nats_per_dim=hp["free_nats"],
                                        breakdown=1)
         losses.entropy = penalty_loss(outputs.entropy, weight=hp["entropy_weight"])
+        if "soft_dtw_stability_gap" in outputs:
+            # log-only (weight 0): the f32 drift of the soft-DTW marginals,
+            # a hard assertion in float64 in probabilistic_dtw.py:118-120
+            losses.soft_dtw_stability_gap = LossTerm(
+                outputs.soft_dtw_stability_gap, weight=0.0)
         return losses
 
     def plan_outputs(self, outputs: AttrDict) -> AttrDict:

@@ -21,6 +21,8 @@ layout by the kind of their flax module:
   stride-dilated input; torch's transposed conv is the adjoint of a conv and
   flips it.
 - GroupNorm `scale` -> `weight`.
+- Scalar parameters (the attention's `log_attn_temp`, the adaptive
+  binding's `log_temp`) pass through as 0-d tensors.
 - OptimizedLSTMCell: input kernels `ii/if/ig/io` (no bias) and hidden kernels
   `hi/hf/hg/ho` (with bias) -> LSTMCell `weight_ih`, `weight_hh`, `bias_hh`
   packed in torch's i, f, g, o order, and `bias_ih` = 0.

@@ -6,8 +6,10 @@ Experiment directories hold a `conf.py` exposing `configuration` and
 `video_gcp_tpu.*` and `experiments.*` by name and stay unchanged. They are
 executed here with an import hook scoped to their own globals: `video_gcp_tpu.X`
 resolves to `video_gcp_torch.X`, and `experiments.*` config modules are
-executed from the checkout through the same hook. Nothing is written to
-`sys.modules`, so the JAX package can be imported in the same process.
+executed from the checkout through the same hook, as is a config that a
+conf loads by path with `importlib.util` (9room/gcp_adaptive_dlm). Nothing
+is written to `sys.modules`, so the JAX package can be imported in the same
+process.
 Environment: GCP_DATA_DIR and GCP_EXP_DIR (README.md:37-40), under the
 temporary directory when unset.
 """
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 import builtins
 import importlib
+import importlib.machinery
+import importlib.util
 import os
 import tempfile
 import types
@@ -51,7 +55,41 @@ class _ConfigImporter:
             name = _PORT_PKG + name[len(_JAX_PKG):]
         elif level == 0 and name.split(".")[0] == "experiments":
             return self._import_experiments(name, fromlist)
+        elif level == 0 and name in ("importlib", "importlib.util"):
+            return self._importlib()
         return builtins.__import__(name, globals, locals, fromlist, level)
+
+    def _importlib(self) -> types.ModuleType:
+        """`importlib` whose `util.spec_from_file_location` returns a spec
+        that executes the file through this importer; every other name is
+        the real one."""
+        importer = self
+
+        class Loader:
+            def __init__(self, path):
+                self.path = Path(path).resolve()
+
+            def create_module(self, spec):
+                return None
+
+            def exec_module(self, module):
+                module.__dict__["__builtins__"] = importer.builtins
+                exec(compile(self.path.read_text(), str(self.path), "exec"),
+                     module.__dict__)
+
+        def spec_from_file_location(name, location, *args, **kwargs):
+            spec = importlib.machinery.ModuleSpec(name, Loader(location),
+                                                  origin=str(location))
+            spec.has_location = True
+            return spec
+
+        util = types.ModuleType("importlib.util")
+        util.__getattr__ = lambda attr: getattr(importlib.util, attr)
+        util.spec_from_file_location = spec_from_file_location
+        shim = types.ModuleType("importlib")
+        shim.__getattr__ = lambda attr: getattr(importlib, attr)
+        shim.util = util
+        return shim
 
     def _import_experiments(self, name: str, fromlist):
         if not fromlist:

@@ -7,7 +7,10 @@ resume (training/trainer.py of the JAX package).
 
 Runs on the card unless `--device cpu` is given; without a GPU it raises.
 Per step: `parallel.train_step.train_step` (forward in phase 'train' /
-mode 'posterior', backward through K1+K2 on the card, finite mask, RAdam).
+mode 'posterior', with K3 in the adaptive binding's matching, backward
+through K1+K2 on the card, finite mask, RAdam). Without trained weights
+(9room/gcp_adaptive), `--resume latest` finds no checkpoint and training
+starts from the port's initialisation.
 Validation computes the loss values with the train-mode posterior
 (train.py:211-215). The image metrics and visualizations of the JAX trainer
 wait for the evaluation slice (ROADMAP queue 1, item 7); the h5 datasets
