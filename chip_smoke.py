@@ -12,18 +12,22 @@ Run from the root of the repository, with no arguments:
    both ptxas reports.
 2. K1 phase: K1 against its plain PyTorch twin on the card at every
    GroupNorm site of the 9-room GCP-tree (5 encoder, 5 decoder) at batch 16
-   and at the CEM batch of 100 candidates, in f32 and bf16, plus the largest
-   shape of the repo, [16352, 64, 64, 16] bf16. Prints per shape the kernel's
-   time (CUDA events, median of 25), the plain twin's time, the time of
-   F.group_norm + F.leaky_relu (a yardstick the port never calls), the bound
-   and the max difference.
+   and at the CEM batch of 100 candidates, the train step's encoder on its
+   1,600 frames, in f32 and bf16, plus the largest shape of the repo,
+   [16352, 64, 64, 16] bf16. Prints per shape the kernel's time (CUDA
+   events, median of 25), its own device time (torch.profiler, 10 calls),
+   the plain twin's time, the time of F.group_norm + F.leaky_relu (a
+   yardstick the port never calls), the bound, the wrapper's host time per
+   call (best of 3 x 50 calls issued back to back) and the max difference; then, per
+   path, the sums of the times and bounds over a plan call's, a B=16
+   rollout's and a train step's K1 sites (f32).
 3. K2 phase: K2 against its twin at the 15 norm shapes of a training step
    at B=16, T=100 in f32 (encoder on 1600 frames and on the 16 start and
    goal frames, decoder on 2032 nodes) and at the two largest of
    bench.py's train step in bf16. Inputs are moved clear of LeakyReLU's kink
    (fused_gn.clear_of_kink) so that both sign tests agree. Prints the same
-   times; the yardstick is the autograd backward of F.group_norm +
-   F.leaky_relu.
+   columns and the sums over a train step's 20 K2 sites; the yardstick is
+   the autograd backward of F.group_norm + F.leaky_relu.
 4. K3 phase: K3 against its twin on the card at the adaptive training
    shape [32, 127, 100] (2B rows of 127 nodes x 100 frames) and at the
    largest shape the repo names, [32, 511, 500], with mixed ends: the
@@ -60,9 +64,18 @@ Run from the root of the repository, with no arguments:
    of the first and last step. Then one step of the trained model on the
    first 2 examples of the first batch, card against CPU, as in 6.
 
-Prints the kernels' JSON line, the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}. Any failure exits non-zero with no
-result line, as does a host without CUDA or a directory without the port.
+Prints the per-path sums and the kernels' JSON lines, the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}. Any failure
+exits non-zero with no result line, as does a host without CUDA or a
+directory without the port.
+
+    python3 chip_smoke.py --parent DIR [--kernels-only]
+
+also builds the K1 and K2 of another checkout of the port in DIR (an earlier
+commit unpacked with `git archive` under video_gcp_torch/_build/) and times
+them in turns with this checkout's at every shape of phases 2 and 3
+(new, old, old, new); --kernels-only stops after those phases and prints
+their rows as JSON.
 """
 import json
 import os
@@ -134,6 +147,101 @@ def time_ms(torch, fn, reps=25, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(torch, fn, tags, reps=10, tries=3):
+    """The kernel's own device time per call, from torch.profiler: the sum
+    over the kernels whose name holds one of `tags`; None when the trace
+    holds no such kernel `tries` times over (the profiler drops a trace now
+    and then)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(t in e.key for t in tags))
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def fmt(v):
+    return "n/m" if v is None else f"{v:.4f}"
+
+
+def host_us(torch, fn, reps=50, rounds=3):
+    """Host time per call of the wrapper: `reps` calls issued back to back
+    and timed without waiting for the card; the best of `rounds`."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def in_turns(torch, new, old, reps=25):
+    """Times `new` and `old` in turns (new, old, old, new): the mean of each
+    pair."""
+    a = time_ms(torch, new, reps)
+    b = time_ms(torch, old, reps) + time_ms(torch, old, reps)
+    return (a + time_ms(torch, new, reps)) / 2, b / 2
+
+
+def load_parent(parent, cuda_build):
+    """The wrapper module and kernels of another checkout of the port (an
+    earlier commit unpacked under video_gcp_torch/_build/), built from its
+    own source, for times taken in turns with this one."""
+    import importlib.util
+    import types
+    spec = importlib.util.spec_from_file_location(
+        "parent_fused_gn", parent / "video_gcp_torch/ops/fused_gn.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ROOT / "video_gcp_torch/_build/parent_fused_gn.so"
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
+                    str(parent / "video_gcp_torch/csrc/fused_gn.cu")],
+                   check=True, capture_output=True, text=True)
+    mod.cuda_build = types.SimpleNamespace(build=lambda source: lib)
+    mod.load_library()
+    return mod
+
+
+# kernel names in profiler traces; an earlier checkout's K2 (--parent) ends
+# with a second, reducing kernel
+K1_TAGS, K2_TAGS = ("gn_lrelu_fwd",), ("gn_lrelu_bwd", "gn_bwd_param_reduce")
+
+
+def path_sums(tag, rows, keys, paths):
+    """Sums of `keys` over the norm sites of each of `paths` (f32): a plan
+    call's 15 launches, a B=16 rollout's 15, a train step's 20."""
+    by = {(tuple(r["shape"]), r["dtype"]): r for r in rows}
+
+    def sites(dec_batch, enc_calls):  # enc_calls: (batch, calls) of the encoder
+        out = [((b,) + s) for b, k in enc_calls for s in ENC_SITES for _ in range(k)]
+        return out + [(dec_batch,) + s for s in DEC_SITES]
+
+    sites_of = dict(plan_call=sites(CEM_BATCH * N_NODES, [(CEM_BATCH, 2)]),
+                 rollout=sites(ROLLOUT_BATCH * N_NODES, [(ROLLOUT_BATCH, 2)]),
+                 train_step=sites(TRAIN_B * N_NODES, [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]))
+    out = {}
+    for path in paths:
+        have = [by.get((s, "float32")) for s in sites_of[path]]
+        if all(have):
+            out[path] = {k: sum(r[k] for r in have) for k in keys
+                         if all(r.get(k) is not None for r in have)}
+            out[path]["launches"] = len(have)
+            print(f"{tag} sum over a {path} ({len(have)} launches, f32): "
+                  + " ".join(f"{k} {v:.4f}" for k, v in out[path].items() if k != "launches"))
+    return out
+
+
 def bound(shape, itemsize):
     numel = 1
     for s in shape:
@@ -143,16 +251,18 @@ def bound(shape, itemsize):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_phase(torch, F, fused_gn):
+def kernel_phase(torch, F, fused_gn, parent=None):
     cases = []
-    for batch in (ROLLOUT_BATCH, CEM_BATCH):
+    for batch in (ROLLOUT_BATCH, CEM_BATCH, TRAIN_B * TRAIN_T):
         cases += [((batch,) + s, d) for s in ENC_SITES for d in ("float32", "bfloat16")]
-        cases += [((batch * N_NODES,) + s, d) for s in DEC_SITES
-                  for d in ("float32", "bfloat16")]
+        if batch != TRAIN_B * TRAIN_T:  # the train step decodes B=16 trees
+            cases += [((batch * N_NODES,) + s, d) for s in DEC_SITES
+                      for d in ("float32", "bfloat16")]
     cases.append(((32 * 511, 64, 64, 16), "bfloat16"))  # bench.py top decode level
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
-    print("K1 gn_lrelu_fwd: shape dtype | ms plain_ms library_ms bound_ms | max_abs_err")
+    print("K1 gn_lrelu_fwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
+          "host_us | max_abs_err" + (" | parent: ms device_ms host_us" if parent else ""))
     for shape, dtype in cases:
         dt = getattr(torch, dtype)
         c, groups = shape[-1], 8
@@ -172,19 +282,34 @@ def kernel_phase(torch, F, fused_gn):
             fail(f"K1 disagrees with its twin at {shape} {dtype}: max err {max_err}")
         del got, want, err
         x_nchw = x.permute(0, 3, 1, 2)  # the same memory, channels_last
-        ms = time_ms(torch, lambda: fused_gn.fused_group_norm_lrelu(x, scale, bias, groups))
-        plain_ms = time_ms(torch, lambda: fused_gn.gn_lrelu_reference(x, scale, bias, groups))
-        lib_ms = time_ms(torch, lambda: F.leaky_relu(
+        run = lambda: fused_gn.fused_group_norm_lrelu(x, scale, bias, groups)  # noqa: E731
+        row = dict(shape=list(shape), dtype=dtype)
+        if parent:
+            old = lambda: parent.fused_group_norm_lrelu(x, scale, bias, groups)  # noqa: E731
+            row["ms"], row["parent_ms"] = in_turns(torch, run, old)
+            row["parent_device_ms"] = device_ms(torch, old, K1_TAGS)
+            row["parent_host_us"] = host_us(torch, old)
+        else:
+            row["ms"] = time_ms(torch, run)
+        row["device_ms"] = device_ms(torch, run, K1_TAGS)
+        row["host_us"] = host_us(torch, run)
+        row["plain_ms"] = time_ms(torch, lambda: fused_gn.gn_lrelu_reference(
+            x, scale, bias, groups))
+        row["library_ms"] = time_ms(torch, lambda: F.leaky_relu(
             F.group_norm(x_nchw, groups, scale.to(dt), bias.to(dt), eps=1e-6), 0.2))
-        bound_ms, bound_by = bound(shape, x.element_size())
-        rows.append(dict(shape=list(shape), dtype=dtype, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         max_abs_err=max_err))
-        print(f"K1 {list(shape)} {dtype} | {ms:.4f} {plain_ms:.4f} {lib_ms:.4f} "
-              f"{bound_ms:.4f} | {max_err:.3e}")
+        row["bound_ms"], row["bound_by"] = bound(shape, x.element_size())
+        row["max_abs_err"] = max_err
+        rows.append(row)
+        print(f"K1 {list(shape)} {dtype} | {row['ms']:.4f} {fmt(row['device_ms'])} "
+              f"{row['plain_ms']:.4f} {row['library_ms']:.4f} {row['bound_ms']:.4f} | "
+              f"{row['host_us']:.1f} | {max_err:.3e}"
+              + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
+                 f"{row['parent_host_us']:.1f}" if parent else ""))
         del x, x_nchw
         torch.cuda.empty_cache()
-    return rows
+    sums = path_sums("K1", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
+                     ("plan_call", "rollout", "train_step"))
+    return rows, sums
 
 
 def bwd_bound(shape, itemsize):
@@ -196,12 +321,13 @@ def bwd_bound(shape, itemsize):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k2_phase(torch, F, fused_gn):
+def k2_phase(torch, F, fused_gn, parent=None):
     """K2 against its twin, and its times, at the training shapes."""
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
-    print("K2 gn_lrelu_bwd: shape dtype | ms plain_ms library_ms bound_ms | "
-          "max err dx dscale dbias (relative to max(1, |ref|))")
+    print("K2 gn_lrelu_bwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
+          "host_us | max err dx dscale dbias (relative to max(1, |ref|))"
+          + (" | parent: ms device_ms host_us" if parent else ""))
     for shape, dtype in K2_SHAPES:
         dt = getattr(torch, dtype)
         c, groups = shape[-1], 8
@@ -223,24 +349,38 @@ def k2_phase(torch, F, fused_gn):
         if not all(e < t for e, t in zip(errs, tols)):
             fail(f"K2 disagrees with its twin at {shape} {dtype}: {errs}")
         del got, want
-        ms = time_ms(torch, lambda: fused_gn.gn_lrelu_bwd(x, dy, scale, bias, groups))
-        plain_ms = time_ms(torch, lambda: fused_gn.gn_lrelu_bwd_reference(
+        run = lambda: fused_gn.gn_lrelu_bwd(x, dy, scale, bias, groups)  # noqa: E731
+        row = dict(shape=list(shape), dtype=dtype)
+        if parent:
+            old = lambda: parent.gn_lrelu_bwd(x, dy, scale, bias, groups)  # noqa: E731
+            row["ms"], row["parent_ms"] = in_turns(torch, run, old)
+            row["parent_device_ms"] = device_ms(torch, old, K2_TAGS)
+            row["parent_host_us"] = host_us(torch, old)
+        else:
+            row["ms"] = time_ms(torch, run)
+        row["device_ms"] = device_ms(torch, run, K2_TAGS)
+        row["host_us"] = host_us(torch, run)
+        row["plain_ms"] = time_ms(torch, lambda: fused_gn.gn_lrelu_bwd_reference(
             x, dy, scale, bias, groups))
         xl = x.permute(0, 3, 1, 2).detach().requires_grad_()  # channels_last view
         wl, bl = (p.to(dt).detach().requires_grad_() for p in (scale, bias))
         yl = F.leaky_relu(F.group_norm(xl, groups, wl, bl, eps=1e-6), 0.2)
         dyl = dy.permute(0, 3, 1, 2)
-        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             yl, (xl, wl, bl), dyl, retain_graph=True))
-        bound_ms, bound_by = bwd_bound(shape, x.element_size())
-        rows.append(dict(shape=list(shape), dtype=dtype, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         max_abs_err=abs_err))
-        print(f"K2 {list(shape)} {dtype} | {ms:.4f} {plain_ms:.4f} {lib_ms:.4f} "
-              f"{bound_ms:.4f} | {errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e}")
+        row["bound_ms"], row["bound_by"] = bwd_bound(shape, x.element_size())
+        row["max_abs_err"] = abs_err
+        rows.append(row)
+        print(f"K2 {list(shape)} {dtype} | {row['ms']:.4f} {fmt(row['device_ms'])} "
+              f"{row['plain_ms']:.4f} {row['library_ms']:.4f} {row['bound_ms']:.4f} | "
+              f"{row['host_us']:.1f} | {errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e}"
+              + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
+                 f"{row['parent_host_us']:.1f}" if parent else ""))
         del x, dy, xl, wl, bl, yl, dyl
         torch.cuda.empty_cache()
-    return rows
+    sums = path_sums("K2", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
+                     ("train_step",))
+    return rows, sums
 
 
 def k3_bound(rows, r, c):
@@ -532,6 +672,13 @@ def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of an earlier commit of the port, "
+                    "whose K1 and K2 are timed in turns with this one's")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the K1 and K2 phases (no result line)")
+    args = ap.parse_args()
     try:
         import torch
         import torch.nn.functional as F
@@ -566,8 +713,17 @@ def main():
     for source in (fused_gn.SOURCE, soft_dtw.SOURCE):
         print(cuda_build.BUILD_LOGS.get(source, "").strip())
 
-    k1_rows = kernel_phase(torch, F, fused_gn)
-    k2_rows = k2_phase(torch, F, fused_gn)
+    parent = None
+    if args.parent:
+        parent = load_parent(Path(args.parent).resolve(), cuda_build)
+        print(f"parent: K1 and K2 of {args.parent}, timed in turns with this checkout's")
+    k1_rows, k1_sums = kernel_phase(torch, F, fused_gn, parent)
+    k2_rows, k2_sums = k2_phase(torch, F, fused_gn, parent)
+    if args.kernels_only:
+        print(json.dumps({"k1": k1_rows, "k2": k2_rows, "k1_sums": k1_sums,
+                          "k2_sums": k2_sums}))
+        print(gpu_name_and_power_limit())
+        return
     k3_rows = k3_phase(torch, soft_dtw)
     soft_dtw.LAUNCHES = 0  # slice_phase resets K1's and K2's counts
     serve_launches, plan_s = slice_phase(torch, fused_gn, load_model, AttrDict)
@@ -613,6 +769,7 @@ def main():
              dict(serve=0, train=0, train_adaptive=ad_k3), source=soft_dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")
+    print(json.dumps({"kernel_path_sums": {"gn_lrelu_fwd": k1_sums, "gn_lrelu_bwd": k2_sums}}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {

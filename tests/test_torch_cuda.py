@@ -13,6 +13,11 @@ package, so on a machine with the card and without JAX it runs as
 - Kernel K2 against its plain twin on the card: dx within 2e-5 of
   max(1, max |dx|) in f32 and 3e-2 in bf16, dscale and dbias within 2e-5 of
   max(1, max |ref|); a dy that is not NHWC-contiguous is copied and counted.
+- K1 and K2 at shapes that reach every branch of `fused_gn.launch_plan`:
+  one sample per CTA, samples split over a cluster, packed small samples
+  with N not a multiple of samples per CTA, the narrow (V = 1) instance for
+  C = 6 and for a view at an odd offset, N = 1 and N < 132; the same
+  tolerances. K2's dscale and dbias are bitwise equal across two calls.
 - Gradients reach the conv weights before a norm on the card, and one train
   step of a small GCP-tree on the card matches the CPU with the same noise
   (losses 1e-5 relative, gradients 1e-4 of each parameter's largest).
@@ -132,6 +137,72 @@ def test_bwd_kernel_matches_twin(card, dtype):
             w = w.float()
             scale = max(1.0, w.abs().max().item())
             assert (g.float() - w).abs().max().item() / scale < tol, shape
+
+
+PLAN_CASES = [((300, 32, 32, 16), 8),  # K1 f32: a sample per CTA; K2: clusters of 2
+              ((140, 64, 64, 16), 8),  # clusters of 2 to 8
+              ((1601, 16, 16, 16), 8),  # packed; 1601 is not a multiple of 4
+              ((1603, 1, 1, 256), 8),  # packed one-warp teams
+              ((7, 5, 3, 6), 2),  # C = 6: the narrow instance
+              ((1, 64, 64, 16), 8),  # N = 1: one sample over 2 to 8 CTAs
+              ((40, 8, 8, 32), 8)]  # N < 132
+
+
+def _at_offset(t, offset):
+    """t copied into a buffer `offset` elements in: a contiguous view whose
+    address is not 16-byte aligned for offset 1."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", PLAN_CASES)
+def test_kernels_at_every_plan_branch(card, shape, groups, dtype, offset):
+    gen = torch.Generator(card).manual_seed(2)
+    c = shape[-1]
+    sc = torch.randn(c, generator=gen, device=card) * 0.5 + 1
+    bi = torch.randn(c, generator=gen, device=card) * 0.1
+    x = (torch.randn(shape, generator=gen, device=card) * 2 + 0.5).to(dtype)
+    x = _at_offset(fused_gn.clear_of_kink(x, sc, bi, groups), offset)
+    dy = _at_offset(torch.randn(shape, generator=gen, device=card).to(dtype), offset)
+    plan = fused_gn._plan(x, groups, True, dy)
+    assert (plan.vec == 1) == (offset == 1 or c == 6)
+    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    y = fused_gn.gn_lrelu_fwd(x, sc, bi, groups)
+    got = fused_gn.gn_lrelu_bwd(x, dy, sc, bi, groups)
+    torch.cuda.synchronize()
+    assert (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    want = fused_gn.gn_lrelu_reference(x, sc, bi, groups).float()
+    err = (y.float() - want).abs()
+    if dtype == torch.float32:
+        assert err.max().item() < 2e-5
+    else:
+        assert (err <= 3e-2 * want.abs().clamp(min=1)).all()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for g, w, t in zip(got, fused_gn.gn_lrelu_bwd_reference(x, dy, sc, bi, groups),
+                       (tol, 2e-5, 2e-5)):
+        w = w.float()
+        assert (g.float() - w).abs().max().item() / max(1.0, w.abs().max().item()) < t
+
+
+@pytest.mark.parametrize("shape", [(2032, 32, 32, 16), (64, 64, 64, 16), (1600, 2, 2, 128)])
+def test_bwd_param_grads_are_bitwise_repeatable(card, shape):
+    gen = torch.Generator(card).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=gen, device=card).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=card).to(dtype)
+        sc = torch.randn(shape[-1], generator=gen, device=card) * 0.5 + 1
+        bi = torch.randn(shape[-1], generator=gen, device=card) * 0.1
+        first = fused_gn.gn_lrelu_bwd(x, dy, sc, bi, 8)
+        second = fused_gn.gn_lrelu_bwd(x, dy, sc, bi, 8)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+    for tickets in fused_gn._tickets.values():  # left zero for the next launch
+        assert not tickets.any()
 
 
 def test_bwd_copies_a_dy_that_is_not_nhwc(card):

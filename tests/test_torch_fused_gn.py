@@ -204,3 +204,71 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         t_gn.gn_lrelu_bwd(x.to("meta"), x.to("meta"), sc.to("meta"), bi.to("meta"), 8)
     assert t_gn.MAX_BWD_CHANNELS == 256
+
+
+# --- launch plans of K1 and K2 ---------------------------------------------------
+
+_SITES = [(16, 16, 16), (8, 8, 32), (4, 4, 64), (2, 2, 128), (1, 1, 256)]
+_DEC_SITES = _SITES[::-1][1:] + [(32, 32, 16)]
+PLAN_SHAPES = (
+    [(16,) + s for s in _SITES] + [(16 * 127,) + s for s in _DEC_SITES]  # B=16
+    + [(100,) + s for s in _SITES] + [(100 * 127,) + s for s in _DEC_SITES]  # CEM
+    + [(1600,) + s for s in _SITES]  # the train step's encoder on B*T frames
+    + [(16352, 64, 64, 16), (2032, 64, 64, 16), (1600, 32, 32, 16)]  # bench tops
+    + [(5, 16, 16, 64), (3, 64, 64, 16), (130, 2, 2, 256), (4, 1, 4, 32),  # card tests
+       (6, 32, 32, 16), (14, 32, 32, 16), (3, 4, 4, 12), (2, 5, 3, 6)]
+    + [(1, 32, 32, 16), (1, 64, 64, 16), (1, 1, 1, 256), (1, 5, 3, 6)])  # N = 1
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_is_legal(shape, itemsize, bwd, aligned):
+    c = shape[-1]
+    groups = 8 if c % 8 == 0 else 2
+    p = t_gn.launch_plan(shape, itemsize, groups, bwd, aligned)
+    n, per = shape[0], shape[1] * shape[2] * c
+    assert p.threads <= min(1024, t_gn.MAX_THREADS) and p.threads % 32 == 0
+    assert p.threads == p.team * p.spb and p.smem <= 232448
+    assert p.cluster in (1, 2, 4, 8) and p.ctas % p.cluster == 0
+    assert p.cluster == 1 or p.spb == 1
+    assert 1 <= p.fin_group <= max(p.ctas, 1)
+    length = per // p.cluster
+    assert length * p.cluster == per and length % c == 0
+    assert p.vec in (1, 16 // itemsize) and (p.vec == 1 or aligned)
+    assert (per * itemsize) % (p.vec * itemsize) == 0 and length % p.vec == 0
+    assert (p.team * p.vec) % c == 0  # each thread stays on the same channels
+    assert p.smem >= (2 if bwd else 1) * p.spb * length * itemsize  # the cache
+    # every (sample, slice) is covered by exactly one CTA
+    cta = np.arange(p.ctas)
+    rank, first = cta % p.cluster, cta // p.cluster * p.spb
+    count = np.zeros((n, p.cluster), int)
+    for t in range(p.spb):
+        s = first + t
+        np.add.at(count, (s[s < n], rank[s < n]), 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("shape,itemsize,bwd,cluster,spb", [
+    ((12700, 32, 32, 16), 4, False, 1, 1),  # one 64 KB sample a CTA
+    ((16352, 64, 64, 16), 2, False, 2, 1),  # 128 KB: a cluster of 2
+    ((2032, 64, 64, 16), 2, True, 4, 1),  # x + dy 256 KB: a cluster of 4
+    ((2032, 32, 32, 16), 4, True, 2, 1),
+    ((12700, 16, 16, 16), 4, False, 1, 4),  # small samples packed
+    ((1600, 1, 1, 256), 2, True, 1, 7),
+])
+def test_launch_plan_splits_and_packs(shape, itemsize, bwd, cluster, spb):
+    p = t_gn.launch_plan(shape, itemsize, 8, bwd)
+    assert (p.cluster, p.spb, p.vec) == (cluster, spb, 16 // itemsize)
+    assert p.smem <= t_gn.CTA_CACHE_BYTES + 4096  # three CTAs share an SM
+
+
+def test_launch_plan_rejects_what_eight_ctas_cannot_hold():
+    with pytest.raises(ValueError):
+        t_gn.launch_plan((2, 256, 256, 16), 4, 8, True)
+    big = t_gn.launch_plan((2032, 32, 32, 16), 4, 8, True)  # 4064 CTAs: two levels
+    assert big.fin_group == 64
+    assert t_gn.bwd_workspace_floats(big, 16) == (4064 + 64 + 1) * 32
+    small = t_gn.launch_plan((100, 8, 8, 32), 4, 8, True)  # 100 rows of 64 floats: one
+    assert small.fin_group == small.ctas == 100

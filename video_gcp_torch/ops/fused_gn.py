@@ -15,11 +15,12 @@ then LeakyReLU(0.2).
 K1's bound: memory, 2 * N*H*W*C * sizeof(dtype) bytes (read x once, write y once).
 At 3.35 TB/s that is 0.50 ms for the CEM batch's top decoder level
 [12700, 32, 32, 16] in f32 and 1.28 ms for the largest shape of the repo,
-[16352, 64, 64, 16] in bf16. The kernel runs one thread block per sample:
-a coalesced statistics pass, then a normalize pass that re-reads the sample
-mostly from L2 (see the source for the design). K2's bound: memory,
-3 * N*H*W*C * sizeof(dtype) bytes (read x and dy once, write dx once); it
-recomputes the statistics from x instead of keeping them from the forward.
+[16352, 64, 64, 16] in bf16. K2's bound: memory, 3 * N*H*W*C * sizeof(dtype)
+bytes (read x and dy once, write dx once); it recomputes the statistics from
+x instead of keeping them from the forward. Both kernels read each element
+once: a CTA keeps its samples, or its slice of one sample in a thread-block
+cluster, in shared memory between the statistics and the output (see the
+source for the design). `launch_plan` chooses the launch shape.
 
 Layout: activations are NHWC, as in the JAX package. The conv layers see the
 same memory as an NCHW tensor in `torch.channels_last`, so no copy is made
@@ -33,21 +34,106 @@ on an H100; PERF.md).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
+from dataclasses import astuple, dataclass
 
 import torch
 
 from video_gcp_torch.ops import cuda_build
 
 SOURCE = "fused_gn.cu"
-MAX_GROUPS = 8  # per-group statistics live in registers (csrc kMaxGroups)
-MAX_BWD_CHANNELS = 256  # K2: one thread per channel (csrc kMaxChannels)
+MAX_GROUPS = 8  # csrc kMaxGroups
+MAX_BWD_CHANNELS = 256  # K2's parameter-gradient rows stay small
+
+# Launch plan limits and targets (H100 SXM; the csrc constants in brackets)
+SM_COUNT = 132
+MAX_THREADS = 512  # threads a CTA (kMaxThreads)
+MAX_CLUSTER = 8  # CTAs a sample may span (kMaxCluster), the portable limit
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may use
+CTA_CACHE_BYTES = 64 * 1024  # samples a CTA caches: three CTAs share an SM
+VECS_PER_THREAD = 16  # 16-byte vectors a thread takes per pass
+PACKED_THREADS = 256  # CTA size when small samples are packed
+FIN_ONE_LEVEL_BYTES = 32 * 1024  # K2: one CTA sums all dscale/dbias rows up to this
 
 LAUNCHES = 0  # K1 launches since import (or since a caller reset it)
 BWD_LAUNCHES = 0  # K2 launches
 BWD_DY_COPIES = 0  # dy copied to NHWC-contiguous before a K2 launch
 
 _lib = None
+_tickets: dict = {}  # (device index, stream) -> int32 K2 tickets, zero between launches
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How K1 or K2 covers [n, H, W, C]: CTAs of `threads` threads hold
+    `spb` samples, one team of `team` threads each, or (cluster > 1) one
+    `cluster`-th of a sample; `vec` elements per access (16 bytes, or 1 for
+    the narrow instance); lanes `shfl` apart share channels; `smem` bytes of
+    dynamic shared memory; K2 sums its per-CTA dscale/dbias rows in groups
+    of `fin_group` CTAs, then the group sums; `ctas` in the grid."""
+    vec: int
+    threads: int
+    team: int
+    spb: int
+    cluster: int
+    shfl: int
+    smem: int
+    fin_group: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(shape: tuple, itemsize: int, groups: int, bwd: bool,
+                aligned: bool = True) -> LaunchPlan:
+    """The launch shape of K1 (bwd False) or K2 for an NHWC tensor of
+    `shape`; `aligned` says the tensors' addresses are 16-byte aligned.
+    Raises ValueError for a sample that eight CTAs cannot hold or a channel
+    count no team size keeps on fixed channels."""
+    *lead, h, w, c = shape
+    n, per = math.prod(lead), h * w * c
+    nin = 2 if bwd else 1
+    vec = 16 // itemsize if aligned and per * itemsize % 16 == 0 else 1
+
+    def splits(cl):  # slices of whole pixels and whole vectors
+        return per % cl == 0 and (per // cl) % c == 0 and (per // cl) % vec == 0
+
+    def cache(cl):
+        return nin * (per // cl) * itemsize
+
+    cluster = 1
+    while cluster < MAX_CLUSTER and splits(2 * cluster) and cache(cluster) > CTA_CACHE_BYTES:
+        cluster *= 2
+    length = per // cluster
+    unit = math.lcm(32, c // math.gcd(c, vec))  # team * vec must be a multiple of C
+    if unit > MAX_THREADS:
+        raise ValueError(f"fused_group_norm_lrelu: no team size for {c} channels")
+    want = -(-length // vec // VECS_PER_THREAD)
+    team = min(-(-want // unit) * unit, MAX_THREADS // unit * unit)
+    spb = 1
+    if cluster == 1:
+        spb = max(1, min(PACKED_THREADS // team, -(-n // (2 * SM_COUNT)),
+                         CTA_CACHE_BYTES // cache(1)))
+    threads = team * spb
+    shfl = next(p for p in (1, 2, 4, 8, 16, 32) if p == 32 or p * vec % c == 0)
+    floats = (2 * (threads // 32) * shfl * vec + 2 * spb * c + 4 * spb * groups
+              + 4 * groups + (max(4 * threads, 2 * c) if bwd else 0))
+    smem = -(-nin * spb * length * itemsize // 16) * 16 + 4 * floats
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fused_group_norm_lrelu: a sample of {tuple(shape[-3:])} needs "
+                         f"{smem} bytes of shared memory in each of {cluster} CTAs")
+    ctas = -(-n // spb) * cluster
+    # one level of row sums when all rows are small, else ~sqrt(ctas) a group
+    fin_group = (max(ctas, 1) if ctas * 2 * c * 4 <= FIN_ONE_LEVEL_BYTES
+                 else math.isqrt(ctas - 1) + 1)
+    return LaunchPlan(vec, threads, team, spb, cluster, shfl, smem, fin_group, ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def _c_plan(plan: LaunchPlan):
+    return (ctypes.c_int * 8)(*astuple(plan)[:8])
 
 
 def gn_lrelu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -111,15 +197,13 @@ def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
+        tail = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         for fn in (lib.gn_lrelu_fwd_f32, lib.gn_lrelu_fwd_bf16):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + tail
             fn.restype = ctypes.c_int
         for fn in (lib.gn_lrelu_bwd_f32, lib.gn_lrelu_bwd_bf16):
-            fn.argtypes = [ctypes.c_void_p] * 8 + [
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + tail
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -148,8 +232,29 @@ def _device(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def _on_device(x: torch.Tensor):
+    """torch.cuda.device(x.device), or nothing when x is on the current device."""
+    if x.device.index is None or x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
+def _f32(p: torch.Tensor) -> torch.Tensor:
+    """A parameter as the kernels read it: float32, contiguous (no copy when
+    it is already)."""
+    if p.dtype == torch.float32 and p.is_contiguous():
+        return p
+    return p.detach().to(torch.float32).contiguous()
+
+
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The current stream of x's device, as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def _plan(x: torch.Tensor, num_groups: int, bwd: bool, *others) -> LaunchPlan:
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
+    return launch_plan(tuple(x.shape), x.element_size(), num_groups, bwd, aligned)
 
 
 def gn_lrelu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -160,22 +265,39 @@ def gn_lrelu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if _device(x) == "cpu":
         return gn_lrelu_reference(x, scale, bias, num_groups, eps, slope)
     _check(x, scale, bias, num_groups)
+    plan = _plan(x, num_groups, False)
+    y = torch.empty_like(x)
+    if plan.ctas == 0:
+        return y
     lib = load_library()
     h, w, c = x.shape[-3:]
-    per_sample = h * w * c
-    n = x.numel() // per_sample
-    y = torch.empty_like(x)
-    scale32 = scale.detach().to(torch.float32).contiguous()
-    bias32 = bias.detach().to(torch.float32).contiguous()
+    scale32, bias32 = _f32(scale), _f32(bias)
     fn = lib.gn_lrelu_fwd_f32 if x.dtype == torch.float32 else lib.gn_lrelu_fwd_bf16
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         err = fn(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
-                 y.data_ptr(), n, per_sample, c, num_groups, eps, slope,
-                 _stream(x))
+                 y.data_ptr(), x.numel() // (h * w * c), h * w * c, c, num_groups,
+                 eps, slope, _c_plan(plan), _stream(x))
     if err != 0:
         raise RuntimeError(f"gn_lrelu_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
     return y
+
+
+def bwd_workspace_floats(plan: LaunchPlan, c: int) -> int:
+    """K2's float32 buffer: a dscale|dbias row per CTA, one per group of
+    `plan.fin_group` CTAs, and the result (dscale then dbias) last."""
+    return (plan.ctas + -(-plan.ctas // plan.fin_group) + 1) * 2 * c
+
+
+def _bwd_tickets(x: torch.Tensor, stream: int, count: int) -> torch.Tensor:
+    """K2's zeroed int32 tickets for launches on `stream`; the kernel leaves
+    them zero."""
+    key = (x.device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 64), dtype=torch.int32, device=x.device)
+        _tickets[key] = t
+    return t
 
 
 def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
@@ -196,25 +318,30 @@ def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     if not dy.is_contiguous():
         dy = dy.contiguous()
         BWD_DY_COPIES += 1
+    plan = _plan(x, num_groups, True, dy)
+    dx = torch.empty_like(x)
+    if plan.ctas == 0:
+        zero = torch.zeros(c, dtype=torch.float32, device=x.device)
+        return dx, zero.to(scale.dtype), zero.to(bias.dtype)
     lib = load_library()
     h, w = x.shape[-3:-1]
-    n = x.numel() // (h * w * c)
-    dx = torch.empty_like(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    ws = torch.empty((n, 2, c), **f32)
-    dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
-    scale32 = scale.detach().to(torch.float32).contiguous()
-    bias32 = bias.detach().to(torch.float32).contiguous()
+    ws = torch.empty(bwd_workspace_floats(plan, c), dtype=torch.float32, device=x.device)
+    scale32, bias32 = _f32(scale), _f32(bias)
     fn = lib.gn_lrelu_bwd_f32 if x.dtype == torch.float32 else lib.gn_lrelu_bwd_bf16
-    with torch.cuda.device(x.device):
+    with _on_device(x):
+        stream = _stream(x)
+        tickets = _bwd_tickets(x, stream, -(-plan.ctas // plan.fin_group) + 1)
         err = fn(x.data_ptr(), dy.data_ptr(), scale32.data_ptr(),
-                 bias32.data_ptr(), dx.data_ptr(), ws.data_ptr(),
-                 dscale.data_ptr(), dbias.data_ptr(), n, h * w, c, num_groups,
-                 eps, slope, _stream(x))
+                 bias32.data_ptr(), dx.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+                 x.numel() // (h * w * c), h * w * c, c, num_groups, eps, slope,
+                 _c_plan(plan), stream)
     if err != 0:
         raise RuntimeError(f"gn_lrelu_bwd launch failed: CUDA error {err}")
     BWD_LAUNCHES += 1
-    return dx, dscale.to(scale.dtype), dbias.to(bias.dtype)
+    dscale, dbias = ws[-2 * c:-c], ws[-c:]
+    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        dscale, dbias = dscale.to(scale.dtype), dbias.to(bias.dtype)
+    return dx, dscale, dbias
 
 
 class GNLReLUFunction(torch.autograd.Function):
