@@ -7,7 +7,8 @@ Run from the root of the repository, with no arguments:
 
 1. Build: compiles kernels K1 (GroupNorm+LeakyReLU forward) and K2 (its
    backward), both in video_gcp_torch/csrc/fused_gn.cu, and K3 (the
-   soft-DTW wavefront), video_gcp_torch/csrc/soft_dtw.cu, with nvcc for
+   soft-DTW posterior: both DPs row by row and w in one launch),
+   video_gcp_torch/csrc/soft_dtw.cu, with nvcc for
    sm_90a, one nvcc per source, started together; prints the build time and
    both ptxas reports.
 2. K1 phase: K1 against its plain PyTorch twin on the card at every
@@ -28,12 +29,18 @@ Run from the root of the repository, with no arguments:
    (fused_gn.clear_of_kink) so that both sign tests agree. Prints the same
    columns and the sums over a train step's 20 K2 sites; the yardstick is
    the autograd backward of F.group_norm + F.leaky_relu.
-4. K3 phase: K3 against its twin on the card at the adaptive training
-   shape [32, 127, 100] (2B rows of 127 nodes x 100 frames) and at the
-   largest shape the repo names, [32, 511, 500], with mixed ends: the
-   accumulated values within 1e-4 of max(1, |D|), w within 1e-4, and no
-   mass past an end. Prints the kernel's and the twin's time (CUDA events,
-   median of 25), the bound, the diagonals and the time per diagonal.
+4. K3 phase: K3 against its row-order twin on the card at the adaptive
+   training shape [16, 127, 100] (B = 16 matrices of 127 nodes x 100
+   frames) and at the largest shape the repo names, [16, 511, 500], with
+   mixed ends: F and Bk (through the kernel's debug output) within 1e-4 of
+   max(1, |D|) with the same finite region, w within 1e-4, and no mass past
+   an end. Prints the kernel's time (CUDA events, median of 25, and its own
+   device time from torch.profiler), the whole soft_dtw() call's time, the
+   twin's time, the bytes bound, the r dependent rows and the device time
+   per row, the wrapper's host time per soft_dtw() call and the device
+   kernels per call (torch.profiler). First it checks that the kernel's
+   branch-free log1p equals the CUDA library's log1pf on every float in
+   [0, 1].
 5. Slice phase (serving): load_model() of 9room/gcp_tree with the ep74
    weights on the card; two 'test'/'prior' rollouts at B=16 (cold, then
    warm); three planner calls ('plan', predicted length) of 100 candidates
@@ -71,11 +78,14 @@ directory without the port.
 
     python3 chip_smoke.py --parent DIR [--kernels-only]
 
-also builds the K1 and K2 of another checkout of the port in DIR (an earlier
-commit unpacked with `git archive` under video_gcp_torch/_build/) and times
-them in turns with this checkout's at every shape of phases 2 and 3
-(new, old, old, new); --kernels-only stops after those phases and prints
-their rows as JSON.
+also builds the K1, K2 and K3 of another checkout of the port in DIR (an
+earlier commit unpacked with `git archive` under video_gcp_torch/_build/)
+and times them in turns with this checkout's at every shape of phases 2 to 4
+(new, old, old, new); for K3 it times the whole soft_dtw() calls (the
+parent's: dp_rows, its K3 and posterior) and checks that this checkout's F
+and Bk equal the parent's DP values bit for bit and w is within 1e-6 of the
+parent's. --kernels-only stops after those phases and prints their rows as
+JSON.
 """
 import json
 import os
@@ -114,11 +124,14 @@ K2_SHAPES = ([((TRAIN_B * TRAIN_T,) + s, "float32") for s in ENC_SITES]
                 ((TRAIN_B * TRAIN_T, 32, 32, 16), "bfloat16")])  # step at 64x64
 K2_FLOPS_PER_ELEMENT = 20  # three passes: stats, sums, dx
 TOLS_TRAIN = dict(loss=1e-4, grad=2e-3)  # tests/test_torch_train.py, ep74
-# K3: 2B rows of the adaptive training step; the largest shape the repo
+# K3: [B, r, c] of the adaptive training step; the largest shape the repo
 # names (video_gcp_tpu/ops/pallas_dtw.py:7-9: 511 nodes x 500 frames)
-K3_SHAPES = [(2 * TRAIN_B, N_NODES, TRAIN_T), (2 * TRAIN_B, 511, 500)]
-K3_OPS_PER_CELL = 10  # two maxima, subtract, abs, exp, log1p, two adds, select
+K3_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (TRAIN_B, 511, 500)]
+# per cell: two DP cells (two maxima, subtract, abs, negate, exp, log1p, two
+# adds) and w (three adds, maximum, exp, two compares, select)
+K3_OPS_PER_CELL = 26
 TOL_K3 = 1e-4  # w absolute (tests/test_torch_soft_dtw.py); D relative to max(1, |D|)
+TOL_K3_PARENT = 1e-6  # w against the earlier checkout's K3 and torch posterior
 EXP_DIR = ROOT / "video_gcp_torch/_build/chip_smoke_exp"  # git-ignored
 
 
@@ -149,9 +162,9 @@ def time_ms(torch, fn, reps=25, warmup=3):
 
 def device_ms(torch, fn, tags, reps=10, tries=3):
     """The kernel's own device time per call, from torch.profiler: the sum
-    over the kernels whose name holds one of `tags`; None when the trace
-    holds no such kernel `tries` times over (the profiler drops a trace now
-    and then)."""
+    over the kernels whose name holds one of `tags` (every kernel for None);
+    None when the trace holds no such kernel `tries` times over (the
+    profiler drops a trace now and then)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -162,10 +175,24 @@ def device_ms(torch, fn, tags, reps=10, tries=3):
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(t in e.key for t in tags))
+                 and (tags is None or any(t in e.key for t in tags)))
         if us > 0:
             return us / reps / 1e3
     return None
+
+
+def kernels_per_call(torch, fn, reps=5):
+    """Device kernels (and memsets or copies) per call of fn, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
 
 
 def fmt(v):
@@ -194,19 +221,21 @@ def in_turns(torch, new, old, reps=25):
     return (a + time_ms(torch, new, reps)) / 2, b / 2
 
 
-def load_parent(parent, cuda_build):
-    """The wrapper module and kernels of another checkout of the port (an
-    earlier commit unpacked under video_gcp_torch/_build/), built from its
-    own source, for times taken in turns with this one."""
+def load_parent(parent, cuda_build, name):
+    """The wrapper module `name` (fused_gn or soft_dtw) and its kernels of
+    another checkout of the port (an earlier commit unpacked under
+    video_gcp_torch/_build/), built from its own source, for times taken in
+    turns with this one."""
     import importlib.util
     import types
     spec = importlib.util.spec_from_file_location(
-        "parent_fused_gn", parent / "video_gcp_torch/ops/fused_gn.py")
+        f"parent_{name}", parent / f"video_gcp_torch/ops/{name}.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # a dataclass looks its module up there
     spec.loader.exec_module(mod)
-    lib = ROOT / "video_gcp_torch/_build/parent_fused_gn.so"
+    lib = ROOT / f"video_gcp_torch/_build/parent_{name}.so"
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                    str(parent / "video_gcp_torch/csrc/fused_gn.cu")],
+                    str(parent / f"video_gcp_torch/csrc/{name}.cu")],
                    check=True, capture_output=True, text=True)
     mod.cuda_build = types.SimpleNamespace(build=lambda source: lib)
     mod.load_library()
@@ -216,6 +245,7 @@ def load_parent(parent, cuda_build):
 # kernel names in profiler traces; an earlier checkout's K2 (--parent) ends
 # with a second, reducing kernel
 K1_TAGS, K2_TAGS = ("gn_lrelu_fwd",), ("gn_lrelu_bwd", "gn_bwd_param_reduce")
+K3_TAGS = ("soft_dtw_kernel",)
 
 
 def path_sums(tag, rows, keys, paths):
@@ -383,47 +413,100 @@ def k2_phase(torch, F, fused_gn, parent=None):
     return rows, sums
 
 
-def k3_bound(rows, r, c):
-    cells = rows * r * c
-    t_bytes = 2 * cells * 4 / HBM_BYTES_PER_S  # read C once, write D once
+def k3_bound(b, r, c):
+    cells = b * r * c
+    t_bytes = 2 * cells * 4 / HBM_BYTES_PER_S  # read C once, write w once
     t_ops = K3_OPS_PER_CELL * cells / F32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k3_phase(torch, soft_dtw):
-    """K3 against its twin on the card, and both times."""
+def k3_parent_check(torch, parent, cost, ends, got):
+    """This checkout's F, Bk and w against the earlier checkout's K3 (on
+    dp_rows' 2B rows) and torch posterior: the DP values bit for bit."""
+    b = cost.shape[0]
+    comb, begin = parent.dp_rows(cost, ends)
+    acc = parent.gak(comb, begin)
+    w_old = parent.posterior(acc, comb, ends)
+    torch.cuda.synchronize()
+    same = (torch.equal(got[1], acc[:b]), torch.equal(got[2], torch.flip(acc[b:], (-1, -2))))
+    w_err = (got[0] - w_old).abs().max().item()
+    if not all(same) or not w_err < TOL_K3_PARENT:
+        fail(f"K3 at {list(cost.shape)} against the parent: F, Bk bitwise equal {same}, "
+             f"w differs by {w_err}")
+    return w_err
+
+
+def k3_phase(torch, soft_dtw, parent=None):
+    """K3 against its row twin on the card, and the times of the kernel,
+    the whole soft_dtw() call and the twin."""
+    bad = soft_dtw.log1p_mismatches("cuda")
+    print(f"K3 log1p: {bad} floats in [0, 1] where the kernel's log1p differs from log1pf")
+    if bad:
+        fail("K3's log1p differs from the CUDA library's log1pf")
     gen = torch.Generator("cuda").manual_seed(2)
     rows_out = []
-    print("K3 soft_dtw_gak: [rows, r, c] | ms plain_ms bound_ms | n_diag us_per_diag | "
-          "max err w, D (relative to max(1, |D|))")
-    for rows, r, c in K3_SHAPES:
-        b = rows // 2
+    print("K3 soft_dtw: [B, r, c] | ms device_ms call_ms plain_ms bound_ms | r us_per_row | "
+          "host_us kernels_per_call | max err w, F, Bk (relative to max(1, |D|))"
+          + (" | parent soft_dtw(): call_ms device_ms host_us kernels_per_call, "
+             "its K3's device_ms, max |w - parent w|" if parent else ""))
+    for b, r, c in K3_SHAPES:
         cost = torch.rand(b, r, c, generator=gen, device="cuda") * 2
         ends = torch.tensor([c - 1, int(c * 0.7), int(c * 0.4)], device="cuda")
         ends = ends[torch.arange(b, device="cuda") % 3]  # mixed ends
-        comb, begin = soft_dtw.dp_rows(cost, ends)
-        got = soft_dtw.gak(comb, begin)
-        want = soft_dtw.gak_reference(comb, begin)
+        got = soft_dtw.k3(cost, ends, return_dp=True)
+        want = soft_dtw.soft_dtw_rows_reference(cost, ends, return_dp=True)
         torch.cuda.synchronize()
-        finite = want > soft_dtw.NEG_INF / 2
-        if not torch.equal(got > soft_dtw.NEG_INF / 2, finite) or not torch.isfinite(got).all():
-            fail(f"K3 at {[rows, r, c]}: the alignment region differs from the twin's")
-        d_err = ((got - want).abs()[finite] / want.abs()[finite].clamp(min=1)).max().item()
-        w = soft_dtw.posterior(got, comb, ends)
-        w_err = (w - soft_dtw.posterior(want, comb, ends)).abs().max().item()
+        d_err = []
+        for d, ref in zip(got[1:], want[1:]):
+            finite = ref > soft_dtw.NEG_INF / 2
+            if not torch.equal(d > soft_dtw.NEG_INF / 2, finite) or not torch.isfinite(d).all():
+                fail(f"K3 at {[b, r, c]}: the alignment region differs from the twin's")
+            d_err.append(((d - ref).abs()[finite] / ref.abs()[finite].clamp(min=1)).max().item())
+        w = got[0]
+        w_err = (w - want[0]).abs().max().item()
         past = max(w[k, :, int(ends[k]) + 1:].abs().sum().item() for k in range(b))
-        if not (d_err < TOL_K3 and w_err < TOL_K3 and past < 1e-6):
-            fail(f"K3 disagrees with its twin at {[rows, r, c]}: D {d_err}, w {w_err}, "
+        if not (max(d_err) < TOL_K3 and w_err < TOL_K3 and past < 1e-6):
+            fail(f"K3 disagrees with its twin at {[b, r, c]}: F, Bk {d_err}, w {w_err}, "
                  f"mass past the ends {past}")
-        ms = time_ms(torch, lambda: soft_dtw.gak(comb, begin))
-        plain_ms = time_ms(torch, lambda: soft_dtw.gak_reference(comb, begin))
-        bound_ms, bound_by = k3_bound(rows, r, c)
-        n_diag = r + c - 1
-        rows_out.append(dict(shape=[rows, r, c], dtype="float32", ms=ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                             max_abs_err=w_err, n_diag=n_diag))
-        print(f"K3 {[rows, r, c]} | {ms:.4f} {plain_ms:.4f} {bound_ms:.5f} | {n_diag} "
-              f"{ms * 1e3 / n_diag:.4f} | {w_err:.3e} {d_err:.3e}")
+        del got, want
+        kernel = lambda: soft_dtw.k3(cost, ends)  # noqa: E731
+        call = lambda: soft_dtw.soft_dtw(cost, ends)  # noqa: E731
+        row = dict(shape=[b, r, c], dtype="float32")
+        if parent:
+            row["parent_w_err"] = k3_parent_check(
+                torch, parent, cost, ends, soft_dtw.k3(cost, ends, return_dp=True))
+            old = lambda: parent.soft_dtw(cost, ends)  # noqa: E731
+            row["call_ms"], row["parent_call_ms"] = in_turns(torch, call, old)
+            comb, begin = parent.dp_rows(cost, ends)
+            row["parent_kernel_device_ms"] = device_ms(
+                torch, lambda: parent.gak(comb, begin), ("gak_kernel",))
+            del comb, begin
+            row["parent_device_ms"] = device_ms(torch, old, None)
+            row["parent_host_us"] = host_us(torch, old)
+            row["parent_kernels_per_call"] = kernels_per_call(torch, old)
+        else:
+            row["call_ms"] = time_ms(torch, call)
+        row["kernels_per_call"] = kernels_per_call(torch, call)
+        row["ms"] = time_ms(torch, kernel)
+        row["device_ms"] = device_ms(torch, kernel, K3_TAGS)
+        row["host_us"] = host_us(torch, call)
+        row["plain_ms"] = time_ms(torch, lambda: soft_dtw.soft_dtw_rows_reference(cost, ends))
+        row["library_ms"] = None  # no PyTorch call computes this DP
+        row["bound_ms"], row["bound_by"] = k3_bound(b, r, c)
+        row["max_abs_err"] = w_err
+        row["dependent_rows"] = r
+        rows_out.append(row)
+        per_row = row["device_ms"] or row["ms"]
+        print(f"K3 {[b, r, c]} | {row['ms']:.4f} {fmt(row['device_ms'])} {row['call_ms']:.4f} "
+              f"{row['plain_ms']:.4f} {row['bound_ms']:.5f} | {r} {per_row * 1e3 / r:.4f} | "
+              f"{row['host_us']:.1f} {row['kernels_per_call']:g} | {w_err:.3e} {d_err[0]:.3e} "
+              f"{d_err[1]:.3e}"
+              + (f" | {row['parent_call_ms']:.4f} {fmt(row['parent_device_ms'])} "
+                 f"{row['parent_host_us']:.1f} {row['parent_kernels_per_call']:g}, "
+                 f"{fmt(row['parent_kernel_device_ms'])}, {row['parent_w_err']:.3e}"
+                 if parent else ""))
+        del cost, ends, w
+        torch.cuda.empty_cache()
     return rows_out
 
 
@@ -675,9 +758,9 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of an earlier commit of the port, "
-                    "whose K1 and K2 are timed in turns with this one's")
+                    "whose K1, K2 and K3 are timed in turns with this one's")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the K1 and K2 phases (no result line)")
+                    help="stop after the K1, K2 and K3 phases (no result line)")
     args = ap.parse_args()
     try:
         import torch
@@ -713,18 +796,21 @@ def main():
     for source in (fused_gn.SOURCE, soft_dtw.SOURCE):
         print(cuda_build.BUILD_LOGS.get(source, "").strip())
 
-    parent = None
+    parent = parent_k3 = None
     if args.parent:
-        parent = load_parent(Path(args.parent).resolve(), cuda_build)
-        print(f"parent: K1 and K2 of {args.parent}, timed in turns with this checkout's")
+        with ThreadPoolExecutor(2) as pool:
+            parent, parent_k3 = pool.map(
+                lambda name: load_parent(Path(args.parent).resolve(), cuda_build, name),
+                ("fused_gn", "soft_dtw"))
+        print(f"parent: K1, K2 and K3 of {args.parent}, timed in turns with this checkout's")
     k1_rows, k1_sums = kernel_phase(torch, F, fused_gn, parent)
     k2_rows, k2_sums = k2_phase(torch, F, fused_gn, parent)
+    k3_rows = k3_phase(torch, soft_dtw, parent_k3)
     if args.kernels_only:
-        print(json.dumps({"k1": k1_rows, "k2": k2_rows, "k1_sums": k1_sums,
+        print(json.dumps({"k1": k1_rows, "k2": k2_rows, "k3": k3_rows, "k1_sums": k1_sums,
                           "k2_sums": k2_sums}))
         print(gpu_name_and_power_limit())
         return
-    k3_rows = k3_phase(torch, soft_dtw)
     soft_dtw.LAUNCHES = 0  # slice_phase resets K1's and K2's counts
     serve_launches, plan_s = slice_phase(torch, fused_gn, load_model, AttrDict)
     if fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
@@ -764,7 +850,7 @@ def main():
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
              dict(serve=0, train=train_k2, train_adaptive=ad_k2)),
-        line("soft_dtw_gak", k3_rows, list(K3_SHAPES[0]), "float32",
+        line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
              dict(serve=0, train=0, train_adaptive=ad_k3), source=soft_dtw.SOURCE),
     ]

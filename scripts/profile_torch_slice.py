@@ -112,7 +112,7 @@ def main():
     what = "step" if args.train else "call"
     for name, tag, count, before in (("K1", "gn_lrelu_fwd", fused_gn.LAUNCHES, launches[0]),
                                      ("K2", "gn_lrelu_bwd", fused_gn.BWD_LAUNCHES, launches[1]),
-                                     ("K3", "gak_kernel", soft_dtw.LAUNCHES, launches[2])):
+                                     ("K3", "soft_dtw_kernel", soft_dtw.LAUNCHES, launches[2])):
         t = sum(e.self_device_time_total for e in kernels if tag in e.key) / REPS
         print(f"{name} {tag}: {t / 1e3:.3f} ms/{what}, share {t / busy_us:.3f}, "
               f"launches per {what} {(count - before) / REPS:.1f}")

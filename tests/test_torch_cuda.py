@@ -21,11 +21,17 @@ package, so on a machine with the card and without JAX it runs as
 - Gradients reach the conv weights before a norm on the card, and one train
   step of a small GCP-tree on the card matches the CPU with the same noise
   (losses 1e-5 relative, gradients 1e-4 of each parameter's largest).
-- Kernel K3 (soft-DTW wavefront) against its plain twin on the card at the
-  9-room training shape [32, 127, 100] and at small shapes: the accumulated
-  values within 1e-4 of max(1, |D|) where finite, NEG_INF where the twin
-  has it, and w within 1e-4 absolute; `soft_dtw` on a CUDA tensor launches
-  K3 once; a small adaptive train step launches K3 once and matches the CPU.
+- Kernel K3 (the soft-DTW posterior: both DPs row by row and w, one
+  launch) against its row-order twin on the card at the 9-room training
+  shape [16, 127, 100], at the largest shape named [2, 511, 500] and at
+  shapes that reach every branch of `soft_dtw.launch_plan` (resident or
+  streamed C, bulk or plain copies, one to seven warps a chain, 4, 8 and 12
+  columns a lane, a cost at an unaligned address): F and Bk within 1e-4 of
+  max(1, |D|) where finite and NEG_INF where the twin has it, w within 1e-4
+  absolute, no mass past an end; one `soft_dtw` call is one K3 launch and
+  its w has no grad_fn; two calls give equal outputs; int32 end_inds work
+  through `soft_dtw` (one cast) and the kernel wrapper itself raises for
+  them; a small adaptive train step launches K3 once and matches the CPU.
 """
 import numpy as np
 import pytest
@@ -292,33 +298,69 @@ def _dtw_inputs(card, b, r, c, seed=0):
     return cost, ends[torch.arange(b, device=card) % 3]
 
 
-@pytest.mark.parametrize("b,r,c", [(16, 127, 100), (3, 15, 9), (2, 31, 20), (1, 7, 7)])
-def test_soft_dtw_kernel_matches_twin(card, b, r, c):
-    cost, ends = _dtw_inputs(card, b, r, c)
-    comb, begin = sdtw.dp_rows(cost, ends)
-    launches = sdtw.LAUNCHES
-    got = sdtw.gak(comb, begin)
-    torch.cuda.synchronize()
-    assert sdtw.LAUNCHES == launches + 1
-    want = sdtw.gak_reference(comb, begin)
-    finite = want > sdtw.NEG_INF / 2
-    assert torch.equal(got > sdtw.NEG_INF / 2, finite)
-    err = (got - want).abs()[finite] / want.abs()[finite].clamp(min=1)
-    assert err.max().item() < 1e-4
-    w = sdtw.posterior(got, comb, ends)
-    assert (w - sdtw.posterior(want, comb, ends)).abs().max().item() < 1e-4
-    for k in range(b):  # no mass past the end
+def _dtw_check(got, want, ends):
+    w, f, bk = got
+    w_ref, f_ref, bk_ref = want
+    for d, ref in ((f, f_ref), (bk, bk_ref)):
+        finite = ref > sdtw.NEG_INF / 2
+        assert torch.equal(d > sdtw.NEG_INF / 2, finite) and torch.isfinite(d).all()
+        err = (d - ref).abs()[finite] / ref.abs()[finite].clamp(min=1)
+        assert err.max().item() < 1e-4
+    assert (w - w_ref).abs().max().item() < 1e-4
+    for k in range(w.shape[0]):  # no mass past the end
         assert bool((w[k, :, int(ends[k]) + 1:].abs() < 1e-6).all())
 
 
-def test_soft_dtw_on_a_cuda_tensor_launches_k3(card):
+@pytest.mark.parametrize("b,r,c", [
+    (16, 127, 100), (3, 15, 9), (2, 31, 20), (1, 7, 7), (2, 511, 500),
+    (1, 129, 129),  # resident, two warps a chain, plain copies (odd r * c)
+    (2, 511, 129),  # streamed with plain copies
+    (1, 1100, 1030),  # 8 columns a lane, five warps a chain
+    (1, 2457, 2457)])  # 12 columns a lane, seven warps a chain
+def test_soft_dtw_kernel_matches_row_twin(card, b, r, c):
+    cost, ends = _dtw_inputs(card, b, r, c)
+    launches = sdtw.LAUNCHES
+    got = sdtw.k3(cost, ends, return_dp=True)
+    torch.cuda.synchronize()
+    assert sdtw.LAUNCHES == launches + 1
+    _dtw_check(got, sdtw.soft_dtw_rows_reference(cost, ends, return_dp=True), ends)
+
+
+def test_soft_dtw_kernel_at_an_unaligned_address(card):
+    cost, ends = _dtw_inputs(card, 3, 127, 100, seed=2)
+    view = _at_offset(cost, 1)  # not 16-byte aligned: plain copies, 4-byte epilogue
+    assert not sdtw.launch_plan(127, 100, view.data_ptr() % 16 == 0).vec
+    _dtw_check(sdtw.k3(view, ends, return_dp=True),
+               sdtw.soft_dtw_rows_reference(cost, ends, return_dp=True), ends)
+
+
+def test_soft_dtw_on_a_cuda_tensor_is_one_k3_launch(card):
     cost, ends = _dtw_inputs(card, 4, 15, 10, seed=1)
     launches = sdtw.LAUNCHES
     w = sdtw.soft_dtw(cost.requires_grad_(), ends)
     torch.cuda.synchronize()
     assert sdtw.LAUNCHES == launches + 1 and w.is_cuda and w.grad_fn is None
-    with pytest.raises(ValueError):  # the kernel takes int32 begins only
-        sdtw.gak(cost.detach(), torch.zeros(4, dtype=torch.int64, device=card))
+    assert torch.equal(w, sdtw.soft_dtw(cost, ends))  # the same on every run
+    for shape in ((16, 127, 100), (2, 511, 500)):
+        cost, ends = _dtw_inputs(card, *shape, seed=3)
+        first, second = (sdtw.k3(cost, ends, return_dp=True) for _ in range(2))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_soft_dtw_log1p_is_the_librarys_on_the_unit_interval(card):
+    """K3's branch-free log1p equals log1pf on every float in [0, 1], the
+    range of its argument expf(-|a - b|)."""
+    assert sdtw.log1p_mismatches(card) == 0
+
+
+def test_soft_dtw_takes_int32_ends_through_a_cast(card):
+    """int32 end_inds work through `soft_dtw`, which casts them to int64 (one
+    cast launch before K3); the kernel wrapper itself raises for them."""
+    cost, ends = _dtw_inputs(card, 3, 15, 9, seed=4)
+    assert torch.equal(sdtw.soft_dtw(cost, ends.to(torch.int32)), sdtw.soft_dtw(cost, ends))
+    with pytest.raises(ValueError, match="end_inds must be int64"):
+        sdtw.k3(cost, ends.to(torch.int32))
 
 
 def test_small_adaptive_train_step_on_card_matches_cpu(card, monkeypatch):

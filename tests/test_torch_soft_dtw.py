@@ -1,8 +1,8 @@
 """Soft-DTW and cdist of the PyTorch port against the JAX package, on the CPU.
 
-On a CPU tensor `video_gcp_torch.ops.soft_dtw.gak` runs K3's plain twin
-`gak_reference`; the card tests (tests/test_torch_cuda.py) hold K3 itself
-against that twin.
+On a CPU tensor `video_gcp_torch.ops.soft_dtw.soft_dtw` runs K3's plain twin
+`soft_dtw_rows_reference` (the DPs row by row, as the kernel walks them); the
+card tests (tests/test_torch_cuda.py) hold K3 itself against that twin.
 
 - `soft_dtw` against JAX's `soft_dtw(..., backend="xla")` (the XLA scan) and
   `soft_dtw_pallas(..., interpret=True)` (the Pallas kernel K3 replaces),
@@ -11,6 +11,14 @@ against that twin.
   [16, 127, 100] with mixed ends.
 - Against the float64 oracle of tests/test_ops.py (a copy below), rtol 1e-3,
   atol 1e-4: the f32 DP against the reference's float64 one.
+- The row twin's F and Bk against `gak_reference` (the JAX package's
+  anti-diagonal scan on the 2B rows of `dp_rows`): bit for bit at
+  [16, 127, 100]; within 1e-6 of max(1, |D|) at small shapes, where torch's
+  CPU logaddexp takes its scalar path for a tensor's last elements and its
+  vector path for the rest (measured: at most 1.9e-7), and cell by cell
+  against the float64 DP.
+- `launch_plan` at c = 1, 9, 100, 128, 129, 500, 2457 and r in {c, 127, 511}:
+  the shared-memory regime, the warps a chain, the limits.
 - Row sums, no mass past the end, the stability gap, r < c raises, and a
   cost that requires grad gives a w without grad_fn.
 - `batch_cdist` against JAX at 1e-5 relative to max(1, |d|).
@@ -130,6 +138,96 @@ def test_gak_twin_matches_dp_cell_by_cell():
     finite = np.isfinite(want)
     np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-5)
     assert np.all(got[~finite] <= t_sd.NEG_INF / 2) and np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("seed,shape,ends,exact", [
+    (0, (3, 7, 5), [0, 1, 4], False), (1, (3, 15, 9), [1, 3, 8], False),
+    (2, (4, 12, 9), [0, 1, 3, 8], False), (3, (16, 127, 100), None, True)])
+def test_row_twin_matches_gak_reference(seed, shape, ends, exact):
+    """F and Bk of the row twin against the forward rows and the flipped
+    backward rows of the anti-diagonal twin: the same float32 operations on
+    the same operands in every cell."""
+    C, ends = _cost(seed, shape, ends)
+    C, ends = torch.from_numpy(C), torch.from_numpy(ends)
+    _, f, bk = t_sd.soft_dtw_rows_reference(C, ends, return_dp=True)
+    acc = t_sd.gak_reference(*t_sd.dp_rows(C, ends))
+    b = shape[0]
+    for got, want in ((f, acc[:b]), (bk, torch.flip(acc[b:], (-1, -2)))):
+        if exact:
+            assert torch.equal(got, want)
+        assert torch.equal(got <= t_sd.NEG_INF / 2, want <= t_sd.NEG_INF / 2)
+        rel = ((got - want).abs() / want.abs().clamp(min=1)).max().item()
+        assert rel <= 1e-6, rel
+
+
+def test_row_twin_matches_dp_cell_by_cell():
+    """F and Bk against the float64 DP of the oracle on -C (forward from
+    column 0, backward on the flipped matrix from c - end - 1) where it is
+    finite; NEG_INF elsewhere. No end is 0 (a backward source in the last
+    column, where the oracle's index wraps around)."""
+    C, ends = _cost(5, (4, 12, 9), [1, 3, 5, 7])
+    _, f, bk = t_sd.soft_dtw_rows_reference(torch.from_numpy(C), torch.from_numpy(ends),
+                                            return_dp=True)
+    neg = -C.astype(np.float64)
+    fwd = np_fast_gak(neg, np.zeros(4, np.int64))
+    bwd = np_fast_gak(neg[:, ::-1, ::-1].copy(), 9 - ends - 1)[:, ::-1, ::-1]
+    for got, want in ((f.numpy(), fwd), (bk.numpy(), bwd)):
+        finite = np.isfinite(want)
+        np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-5)
+        assert np.all(got[~finite] <= t_sd.NEG_INF / 2) and np.isfinite(got).all()
+
+
+def test_k3_on_the_cpu_is_the_row_twin():
+    C, ends = _cost(9, (3, 15, 9), [8, 5, 2])
+    C, ends = torch.from_numpy(C), torch.from_numpy(ends)
+    got = t_sd.k3(C, ends, return_dp=True)
+    for g, w in zip(got, t_sd.soft_dtw_rows_reference(C, ends, return_dp=True)):
+        assert torch.equal(g, w)
+    assert torch.equal(t_sd.soft_dtw(C, ends.to(torch.int32)), got[0])
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        t_sd.k3(torch.empty(2, 5, 5, device="meta"), torch.zeros(2, dtype=torch.int64))
+
+
+PLAN_FRAMES = [1, 9, 100, 128, 129, 500, 2457]
+
+
+@pytest.mark.parametrize("c", PLAN_FRAMES)
+@pytest.mark.parametrize("r", ["c", 127, 511])
+def test_launch_plan(r, c):
+    r = c if r == "c" else r
+    if r < c:
+        with pytest.raises(ValueError, match="at least as many nodes"):
+            t_sd.launch_plan(r, c)
+        return
+    plan = t_sd.launch_plan(r, c)
+    cells = -(-r * c // 4) * 4
+    resident = t_sd.HEADER_BYTES + 12 * cells <= t_sd.SMEM_LIMIT
+    assert plan.resident == resident
+    assert plan.cols == (4 if c <= 896 else 8 if c <= 1792 else 12)
+    assert plan.warps <= t_sd.MAX_CHAIN_WARPS and plan.warps * 32 * plan.cols >= c
+    assert (plan.warps - 1) * 32 * plan.cols < c  # no warp without a column
+    assert 32 * (1 + 2 * plan.warps) <= t_sd.THREADS
+    assert plan.rows % 4 == 0 and plan.chunks == -(-r // plan.rows)
+    assert plan.rows * c * 4 <= max(t_sd.CHUNK_BYTES, 16 * c)
+    assert plan.vec == (r * c % 4 == 0)
+    assert t_sd.launch_plan(r, c, aligned=False).vec == 0
+    assert plan.smem <= t_sd.SMEM_LIMIT
+    if resident:
+        assert plan.chunks <= t_sd.MAX_CHUNKS and plan.smem == t_sd.HEADER_BYTES + 12 * cells
+    else:
+        assert 1 <= plan.slots <= t_sd.MAX_SLOTS
+        assert plan.smem == t_sd.HEADER_BYTES + 8 * plan.slots * plan.rows * c
+
+
+def test_launch_plan_main_shapes_and_limits():
+    train = t_sd.launch_plan(127, 100)  # the adaptive step, 3 x 50.8 KB resident
+    assert (train.resident, train.warps, train.cols, train.vec) == (1, 1, 4, 1)
+    assert train.smem == 1024 + 3 * 127 * 100 * 4
+    big = t_sd.launch_plan(511, 500)  # the largest shape named: C streams
+    assert (big.resident, big.warps, big.cols, big.rows, big.slots) == (0, 4, 4, 4, 4)
+    for r, c in ((2457, 2458), (3000, 2458), (4, 0)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            t_sd.launch_plan(r, c)
 
 
 def test_rows_sum_to_one_and_no_mass_past_end():

@@ -8,11 +8,14 @@ it happens only when a kernel is first launched, never at import.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -33,6 +36,19 @@ def nvcc_path() -> str:
     if found is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
     return found
+
+
+def on_device(x: torch.Tensor):
+    """torch.cuda.device(x.device) for a launch, or nothing when x is on the
+    current device."""
+    if x.device.index is None or x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
+def stream(x: torch.Tensor) -> int:
+    """The current stream of x's device, as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def build(source: str) -> Path:

@@ -34,7 +34,6 @@ on an H100; PERF.md).
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -232,24 +231,12 @@ def _device(x: torch.Tensor) -> str:
     return x.device.type
 
 
-def _on_device(x: torch.Tensor):
-    """torch.cuda.device(x.device), or nothing when x is on the current device."""
-    if x.device.index is None or x.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(x.device)
-
-
 def _f32(p: torch.Tensor) -> torch.Tensor:
     """A parameter as the kernels read it: float32, contiguous (no copy when
     it is already)."""
     if p.dtype == torch.float32 and p.is_contiguous():
         return p
     return p.detach().to(torch.float32).contiguous()
-
-
-def _stream(x: torch.Tensor) -> int:
-    """The current stream of x's device, as a raw handle."""
-    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def _plan(x: torch.Tensor, num_groups: int, bwd: bool, *others) -> LaunchPlan:
@@ -273,10 +260,10 @@ def gn_lrelu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     h, w, c = x.shape[-3:]
     scale32, bias32 = _f32(scale), _f32(bias)
     fn = lib.gn_lrelu_fwd_f32 if x.dtype == torch.float32 else lib.gn_lrelu_fwd_bf16
-    with _on_device(x):
+    with cuda_build.on_device(x):
         err = fn(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
                  y.data_ptr(), x.numel() // (h * w * c), h * w * c, c, num_groups,
-                 eps, slope, _c_plan(plan), _stream(x))
+                 eps, slope, _c_plan(plan), cuda_build.stream(x))
     if err != 0:
         raise RuntimeError(f"gn_lrelu_fwd launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -328,8 +315,8 @@ def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     ws = torch.empty(bwd_workspace_floats(plan, c), dtype=torch.float32, device=x.device)
     scale32, bias32 = _f32(scale), _f32(bias)
     fn = lib.gn_lrelu_bwd_f32 if x.dtype == torch.float32 else lib.gn_lrelu_bwd_bf16
-    with _on_device(x):
-        stream = _stream(x)
+    with cuda_build.on_device(x):
+        stream = cuda_build.stream(x)
         tickets = _bwd_tickets(x, stream, -(-plan.ctas // plan.fin_group) + 1)
         err = fn(x.data_ptr(), dy.data_ptr(), scale32.data_ptr(),
                  bias32.data_ptr(), dx.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
