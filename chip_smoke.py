@@ -21,14 +21,15 @@ Run from the root of the repository, with no arguments:
    yardstick the port never calls), the bound, the wrapper's host time per
    call (best of 3 x 50 calls issued back to back) and the max difference; then, per
    path, the sums of the times and bounds over a plan call's, a B=16
-   rollout's and a train step's K1 sites (f32).
+   rollout's and a train step's K1 sites, in f32 and in bf16.
 3. K2 phase: K2 against its twin at the 15 norm shapes of a training step
-   at B=16, T=100 in f32 (encoder on 1600 frames and on the 16 start and
-   goal frames, decoder on 2032 nodes) and at the two largest of
-   bench.py's train step in bf16. Inputs are moved clear of LeakyReLU's kink
-   (fused_gn.clear_of_kink) so that both sign tests agree. Prints the same
-   columns and the sums over a train step's 20 K2 sites; the yardstick is
-   the autograd backward of F.group_norm + F.leaky_relu.
+   at B=16, T=100 (encoder on 1600 frames and on the 16 start and goal
+   frames, decoder on 2032 nodes) in f32 and in bf16, and at the two
+   largest of bench.py's train step in bf16. Inputs are moved clear of
+   LeakyReLU's kink (fused_gn.clear_of_kink) so that both sign tests agree.
+   Prints the same columns and the sums over a train step's 20 K2 sites
+   in each dtype; the yardstick is the autograd backward of F.group_norm +
+   F.leaky_relu.
 4. K3 phase: K3 against its row-order twin on the card at the adaptive
    training shape [16, 127, 100] (B = 16 matrices of 127 nodes x 100
    frames) and at the largest shape the repo names, [16, 511, 500], with
@@ -71,10 +72,33 @@ Run from the root of the repository, with no arguments:
    of the first and last step. Then one step of the trained model on the
    first 2 examples of the first batch, card against CPU, as in 6.
 
-Prints the per-path sums and the kernels' JSON lines, the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}. Any failure
-exits non-zero with no result line, as does a host without CUDA or a
-directory without the port.
+8. bf16 phase: load_model() of 9room/gcp_tree with the ep74 weights and
+   compute_dtype=torch.bfloat16 (float32 parameters, bf16 compute). First
+   3 B=16 rollouts and 3 100-candidate plan calls of the f32 ep74 model,
+   then the same of the bf16 model after one cold call each: 15 K1
+   launches per bf16 forward, every one on a bf16 x, finite outputs, and
+   the first 2 samples of the last bf16 rollout against the port in bf16
+   on the CPU (mean |diff| per tree level within tests/test_torch_bf16.py's
+   tolerances). Then 8 train_steps (parallel/train_step.py) at B=16,
+   T=100 on the same 8 prefetched batches, first of the trainer's f32
+   model, then of the bf16 model: 20 K1 and 20 K2 launches per bf16 step
+   in bf16, finite losses and gradients, float32 parameters that moved.
+   Prints, for f32 and bf16 side by side, the median ms of the warm calls
+   and of steps 2-7, and training frames/s. Then one bf16 train step on 2
+   examples, card against CPU, as in 6 (TOLS_TRAIN_BF16).
+9. Eval phase: the Evaluator (top-of-100, the config's 'basic' scheme) on
+   the ep74 model on one B=16, T=100 val batch on the card: 15 K1 launches
+   per sampled forward (100 samples and 5 plotted ones), finite metrics,
+   the kept best frames scoring the least MSE of the 100 per sequence,
+   the channel-first .npy dumps' shapes, and one sample with injected z
+   against the CPU. Then 'pruned_dtw' at top-of-10. Prints seconds per
+   batch, decoded frames/s (top_of x B x 127 nodes / s) and the DTW warp's
+   ms at [16, 127, 100].
+
+Prints the seconds of each phase, the per-path sums and the kernels' JSON
+lines, the card's name and power limit, and as its last line {"ok": true,
+"device": {...}}. Any failure exits non-zero with no result line, as does
+a host without CUDA or a directory without the port.
 
     python3 chip_smoke.py --parent DIR [--kernels-only]
 
@@ -117,13 +141,20 @@ N_NODES = 127  # 2^7 - 1 at hierarchy_levels=7
 CEM_BATCH, CEM_ITERS, ROLLOUT_BATCH = 100, 3, 16
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 100, 32  # 256 / 16 x epoch_cycles_train 2
 NORMS_PER_STEP = 20  # 5 sites x 3 encoder calls (sequence, I_0, I_g) + 5 decoder
-K2_SHAPES = ([((TRAIN_B * TRAIN_T,) + s, "float32") for s in ENC_SITES]
-             + [((TRAIN_B,) + s, "float32") for s in ENC_SITES]
-             + [((TRAIN_B * N_NODES,) + s, "float32") for s in DEC_SITES]
+# K2 at the train step's 15 norm shapes, in f32 and in bf16 (the bf16 path)
+K2_SHAPES = ([((b,) + s, d) for d in ("float32", "bfloat16")
+              for b, sites in ((TRAIN_B * TRAIN_T, ENC_SITES), (TRAIN_B, ENC_SITES),
+                               (TRAIN_B * N_NODES, DEC_SITES)) for s in sites]
              + [((TRAIN_B * N_NODES, 64, 64, 16), "bfloat16"),  # bench.py's train
                 ((TRAIN_B * TRAIN_T, 32, 32, 16), "bfloat16")])  # step at 64x64
 K2_FLOPS_PER_ELEMENT = 20  # three passes: stats, sums, dx
 TOLS_TRAIN = dict(loss=1e-4, grad=2e-3)  # tests/test_torch_train.py, ep74
+# bf16 card vs CPU. The heads round their outputs to bf16 (2^-8 relative)
+# before the f32 losses, and the two devices may round to neighbouring
+# values: one ulp moves an L2 loss whose residual is as large as the
+# prediction by ~1.6e-2 (cost_estimation). Gradients wider still, as bf16
+# error grows through the tree's recursive LSTM (tests/test_torch_bf16.py).
+TOLS_TRAIN_BF16 = dict(loss=5e-2, grad=1e-1)
 # K3: [B, r, c] of the adaptive training step; the largest shape the repo
 # names (video_gcp_tpu/ops/pallas_dtw.py:7-9: 511 nodes x 500 frames)
 K3_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (TRAIN_B, 511, 500)]
@@ -132,6 +163,12 @@ K3_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (TRAIN_B, 511, 500)]
 K3_OPS_PER_CELL = 26
 TOL_K3 = 1e-4  # w absolute (tests/test_torch_soft_dtw.py); D relative to max(1, |D|)
 TOL_K3_PARENT = 1e-6  # w against the earlier checkout's K3 and torch posterior
+# bf16: mean |diff| per tree level, tests/test_torch_bf16.py
+TOLS_BF16_MEAN = dict(images=3e-3, e_g_prime=1.5e-2)
+BF16_STEPS = 8
+BF16_WARM = CEM_ITERS  # warm serving calls of each model
+BF16_MOVE_GRAD = 1e-6  # a bf16 step's gradient at least this large moves its parameter
+TOL_EVAL_METRIC = 1e-4  # tests/test_torch_evaluator.py, relative to max(1, |value|)
 EXP_DIR = ROOT / "video_gcp_torch/_build/chip_smoke_exp"  # git-ignored
 
 
@@ -249,8 +286,9 @@ K3_TAGS = ("soft_dtw_kernel",)
 
 
 def path_sums(tag, rows, keys, paths):
-    """Sums of `keys` over the norm sites of each of `paths` (f32): a plan
-    call's 15 launches, a B=16 rollout's 15, a train step's 20."""
+    """Sums of `keys` over the norm sites of each of `paths`, in f32 and
+    (as `<path>_bf16`) in bf16: a plan call's 15 launches, a B=16
+    rollout's 15, a train step's 20."""
     by = {(tuple(r["shape"]), r["dtype"]): r for r in rows}
 
     def sites(dec_batch, enc_calls):  # enc_calls: (batch, calls) of the encoder
@@ -262,13 +300,15 @@ def path_sums(tag, rows, keys, paths):
                  train_step=sites(TRAIN_B * N_NODES, [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]))
     out = {}
     for path in paths:
-        have = [by.get((s, "float32")) for s in sites_of[path]]
-        if all(have):
-            out[path] = {k: sum(r[k] for r in have) for k in keys
-                         if all(r.get(k) is not None for r in have)}
-            out[path]["launches"] = len(have)
-            print(f"{tag} sum over a {path} ({len(have)} launches, f32): "
-                  + " ".join(f"{k} {v:.4f}" for k, v in out[path].items() if k != "launches"))
+        for dtype, name in (("float32", path), ("bfloat16", f"{path}_bf16")):
+            have = [by.get((s, dtype)) for s in sites_of[path]]
+            if all(have):
+                out[name] = {k: sum(r[k] for r in have) for k in keys
+                             if all(r.get(k) is not None for r in have)}
+                out[name]["launches"] = len(have)
+                print(f"{tag} sum over a {path} ({len(have)} launches, {dtype}): "
+                      + " ".join(f"{k} {v:.4f}" for k, v in out[name].items()
+                                 if k != "launches"))
     return out
 
 
@@ -607,7 +647,232 @@ def slice_phase(torch, fused_gn, load_model, AttrDict):
     check_against_cpu(torch, cpu_model, rollout_in, out, "test",
                       ("images", "e_g_prime", "existence_logits"))
     check_against_cpu(torch, cpu_model, plan_in, plan, "plan", TOLS_SLICE)
-    return launches, statistics.median(calls)
+    return launches, statistics.median(calls), model, cpu_model
+
+
+def bf16_phase(torch, fused_gn, load_model, AttrDict, train_step_mod, f32_model,
+               f32_train_model, dataset, DataLoader):
+    """The serving and training paths with bf16 compute over float32
+    parameters. The same calls and steps of the f32 models (ep74 from the
+    slice phase, and the trainer's model) are timed first, the same way."""
+    model = load_model(CONF, weights=WEIGHTS, compute_dtype=torch.bfloat16)
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        fail("bf16: parameters are not all float32")
+    norm_dtypes = set()
+    for m in model.modules():
+        if type(m).__name__ == "GroupNorm":
+            m.register_forward_pre_hook(lambda mod, args: norm_dtypes.add(args[0].dtype))
+    gen = torch.Generator("cuda").manual_seed(16)
+
+    def images(n):
+        return torch.randint(0, 256, (n, 32, 32, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    roll_in = AttrDict(I_0=images(ROLLOUT_BATCH), I_g=images(ROLLOUT_BATCH),
+                       end_ind=torch.full((ROLLOUT_BATCH,), 99, device="cuda"))
+    plan_in = AttrDict(I_0=images(1).repeat(CEM_BATCH, 1, 1, 1),
+                       I_g=images(1).repeat(CEM_BATCH, 1, 1, 1))
+
+    def serve(m, calls):
+        """`calls` timed B=16 rollouts, then as many plan calls: the seconds
+        of each, the last rollout and K1's launches per forward."""
+        secs, per_forward = dict(rollout=[], plan=[]), []
+        with torch.inference_mode():
+            for name, inp, kw in (("rollout", roll_in, dict(phase="test")),
+                                  ("plan", plan_in, dict(phase="plan", pred_length=True))):
+                for _ in range(calls):
+                    inp.z = torch.randn(inp.I_0.shape[0], N_NODES, 256, generator=gen,
+                                        device="cuda")
+                    before = fused_gn.LAUNCHES
+                    out, sec = timed(lambda: m(inp, mode="prior", generator=gen, **kw))
+                    secs[name].append(sec)
+                    per_forward.append(fused_gn.LAUNCHES - before)
+                    for k in ("images", "e_g_prime"):
+                        if out.tree[k].dtype != torch.float32 or not torch.isfinite(
+                                out.tree[k]).all():
+                            fail(f"{name}: {k} not finite float32")
+                    if name == "rollout":
+                        last_rollout = out
+        return secs, last_rollout, per_forward
+
+    f32_secs = serve(f32_model, BF16_WARM)[0]  # warm since the slice phase
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = 0  # the bf16 serving path starts
+    secs, roll_out, per_forward = serve(model, 1 + BF16_WARM)  # cold, then warm
+    serve_launches = fused_gn.LAUNCHES
+    if per_forward != [15] * (2 + 2 * BF16_WARM) or norm_dtypes != {torch.bfloat16}:
+        fail(f"bf16: K1 launches per forward {per_forward}, norm inputs {norm_dtypes}")
+
+    # the last rollout's first 2 samples against the port in bf16 on the CPU
+    cpu = load_model(CONF, weights=WEIGHTS, device="cpu", compute_dtype=torch.bfloat16)
+    cpu_in = AttrDict({k: roll_in[k][:2].cpu() for k in ("I_0", "I_g", "z", "end_ind")})
+    with torch.inference_mode():
+        ref = cpu(cpu_in, phase="test", mode="prior")
+    worst = {}
+    for k, tol in TOLS_BF16_MEAN.items():
+        for d in range(7):
+            level = slice(2 ** d - 1, 2 ** (d + 1) - 1)
+            diff = (roll_out.tree[k][:2, level].cpu() - ref.tree[k][:, level]).abs().mean().item()
+            worst[k] = max(worst.get(k, 0.0), diff)
+            if not diff < tol:
+                fail(f"bf16: card vs CPU {k} level {d}: mean |diff| {diff} (tolerance {tol})")
+    print(f"bf16: K1 launches per forward {per_forward}, all on bf16 x; card vs CPU (bf16), "
+          f"first 2 samples, worst level's mean |diff|: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    for name, what in (("rollout", f"test/prior rollout (B={ROLLOUT_BATCH})"),
+                       ("plan", f"plan call ({CEM_BATCH} candidates)")):
+        f32, bf16 = statistics.median(f32_secs[name]), statistics.median(secs[name][1:])
+        print(f"bf16: {what}, median of {BF16_WARM} warm calls: f32 {f32 * 1e3:.2f} ms, "
+              f"bf16 {bf16 * 1e3:.2f} ms (cold {secs[name][0] * 1e3:.2f}); bf16 "
+              f"{ROLLOUT_BATCH if name == 'rollout' else CEM_BATCH} * {N_NODES} / s "
+              f"{(ROLLOUT_BATCH if name == 'rollout' else CEM_BATCH) * N_NODES / bf16:.0f} "
+              f"decoded frames/s")
+
+    # training: BF16_STEPS steps on the same batches, the f32 model's first
+    loader = DataLoader(dataset, TRAIN_B, shuffle=True, n_repeat=2, num_workers=4,
+                        device="cuda")
+    batches = [b for _, b in zip(range(BF16_STEPS), loader)]
+
+    def train(m):
+        m.train()
+        named = [(n, p) for n, p in m.named_parameters() if p.requires_grad]
+        opt = train_step_mod.make_optimizer([p for _, p in named], "radam", 2e-4)
+        steps, secs = [], []
+        for i, batch in enumerate(batches):
+            k1, k2 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES
+            met, sec = timed(lambda: train_step_mod.train_step(m, opt, batch, i, gen))
+            secs.append(sec)
+            steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2))
+            if not bool(met.grads_finite) or not all(torch.isfinite(v).all()
+                                                     for v in met.values()):
+                fail(f"train ({m.dtype}): non-finite metrics at step {i}")
+        return named, steps, secs, met
+
+    f32_secs = train(f32_train_model)[2]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    before = [p.detach().clone() for _, p in named]
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = 0  # the bf16 training path starts
+    norm_dtypes.clear()
+    named, steps, secs, met = train(model)
+    train_launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    if set(steps) != {(NORMS_PER_STEP, NORMS_PER_STEP)} or norm_dtypes != {torch.bfloat16}:
+        fail(f"bf16 train: K1/K2 launches per step {steps}, norm inputs {norm_dtypes}")
+    if {p.dtype for _, p in named} != {torch.float32} or {
+            p.grad.dtype for _, p in named} != {torch.float32}:
+        fail("bf16 train: parameters or gradients are not float32")
+    # ep74's existence BCE is saturated (~1e-9): its MLP's bf16 gradients are
+    # rounding noise, far below RAdam's eps, and move nothing in 8 steps
+    static = {n: p.grad.abs().max().item() for (n, p), b in zip(named, before)
+              if torch.equal(p.detach(), b)}
+    unchanged = [n for n, g in static.items() if g >= BF16_MOVE_GRAD]
+    if unchanged:
+        fail(f"bf16 train: parameters with a gradient did not change: {unchanged}")
+    f32, warm = statistics.median(f32_secs[2:]), statistics.median(secs[2:])
+    print(f"bf16 train: {BF16_STEPS} steps of B={TRAIN_B} T={TRAIN_T} on the same prefetched "
+          f"batches, K1/K2 launches per step {steps[0]}; median of steps 2-{BF16_STEPS - 1}: "
+          f"f32 {f32 * 1e3:.2f} ms, bf16 {warm * 1e3:.2f} ms (step 0 {secs[0] * 1e3:.2f}); "
+          f"training frames/s f32 {TRAIN_B * TRAIN_T / f32:.1f}, bf16 "
+          f"{TRAIN_B * TRAIN_T / warm:.1f}; total {met.total.item():.6g} at the last step; "
+          f"parameters that did not move (largest |gradient| at the last step): "
+          + json.dumps({n: float(f"{g:.3g}") for n, g in static.items()}))
+    return serve_launches, train_launches
+
+
+def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader, AttrDict):
+    """The top-of-100 Evaluator on the ep74 model, one B=16 val batch."""
+    from video_gcp_torch.core.metrics import mse
+    from video_gcp_torch.evaluation.evaluator import Evaluator
+    from video_gcp_torch.ops.dtw import batched_dtw_alignment, dtw_warp_sequence
+    batch = next(iter(DataLoader(dataset, TRAIN_B, shuffle=False, num_workers=4,
+                                 device="cuda")))
+    out_dir = EXP_DIR / "eval"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ev = Evaluator(model, str(out_dir), {}, TRAIN_T, "basic")
+    gen = torch.Generator("cuda").manual_seed(123)
+    n_samples = 100 + ev.N_PLOTTED_ELEMENTS
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0  # eval starts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ev.eval(batch, gen)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = fused_gn.LAUNCHES
+    if launches != 15 * n_samples or fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
+        fail(f"eval: {launches} K1 launches for {n_samples} sampled forwards, expected 15 "
+             f"each; K2 {fused_gn.BWD_LAUNCHES}, K3 {soft_dtw.LAUNCHES}")
+    for k, v in res.metrics.items():
+        if v.shape != (TRAIN_B, 100) or not np.isfinite(v).all():
+            fail(f"eval: {k} {v.shape}, finite {np.isfinite(v).all()}")
+    # the kept frames score the least MSE of the 100 samples, per sequence
+    gt = torch.from_numpy(res.gt_seq)
+    t_idx = torch.arange(TRAIN_T)[None]
+    end = torch.from_numpy(res.end_ind)
+    valid = (t_idx >= 1) & (t_idx <= end[:, None] - 1) & (batch.pad_mask.cpu() > 0)
+    best = ((mse(torch.from_numpy(res.best_gen), gt) * valid).sum(1) / valid.sum(1)).numpy()
+    least = res.metrics["mse"].min(1)
+    if not np.allclose(best, least, rtol=1e-5, atol=1e-7) or not (
+            least[:, None] <= res.metrics["mse"]).all():
+        fail(f"eval: best frames' mse {best} against the least sample mse {least}")
+    summary = ev.dump_results(0)
+    shapes = {"gt_seq_0.npy": (TRAIN_B, TRAIN_T - 1, 3, 32, 32),
+              "gen_images_0.npy": (TRAIN_B, TRAIN_T - 1, 3, 32, 32),
+              "full_gen_seq_0.npy": (TRAIN_B, N_NODES, 3, 32, 32),
+              "seq_samples_0.npy": (min(TRAIN_B, ev.N_PLOTTED_ELEMENTS),
+                                    ev.N_PLOTTED_ELEMENTS, TRAIN_T, 3, 32, 32)}
+    for name, shape in shapes.items():
+        got = np.load(out_dir / "metrics" / name, mmap_mode="r").shape
+        if got != shape:
+            fail(f"eval: {name} has shape {got}, expected {shape}")
+    if not (out_dir / "metrics/results_0.txt").is_file():
+        fail("eval: no results_0.txt")
+    print(f"eval: Evaluator 'basic' top-of-100 on B={TRAIN_B}, T={TRAIN_T}: {sec:.3f} s per "
+          f"batch, {100 * TRAIN_B * N_NODES / sec:.0f} decoded frames/s; K1 launches "
+          f"{launches} = 15 x {n_samples} sampled forwards; best-of-100 "
+          + json.dumps({k: float(f"{v:.6g}") for k, v in summary.items()}))
+
+    # one sample with injected z, card against CPU
+    z = torch.randn(2, N_NODES, 256, generator=gen, device="cuda")
+    inp = AttrDict({k: batch[k][:2] for k in ("traj_seq", "I_0", "I_g", "end_ind", "pad_mask")})
+    inp.traj_seq = inp.traj_seq.float() / 127.5 - 1.0
+    inp.z = z
+    m, g, _ = ev._eval_sample(inp, None)
+    ev_cpu = Evaluator(cpu_model, str(out_dir / "cpu"), {}, TRAIN_T, "basic")
+    m_cpu, g_cpu, _ = ev_cpu._eval_sample(AttrDict({k: v.cpu() for k, v in inp.items()}), None)
+    img_d = max_diff(g, g_cpu)
+    met_d = max(((m[k].cpu() - m_cpu[k]).abs() / m_cpu[k].abs().clamp(min=1)).max().item()
+                for k in m)
+    if not (img_d < TOLS_SLICE["images"] and met_d < TOL_EVAL_METRIC):
+        fail(f"eval: card vs CPU with injected z: frames {img_d}, metrics {met_d}")
+    print(f"eval: card vs CPU, one sample with injected z: frames {img_d:.3e}, metrics "
+          f"(relative) {met_d:.3e}")
+
+    # 'pruned_dtw', a shorter run of the same protocol
+    ev_p = Evaluator(model, str(out_dir / "pruned"), {}, TRAIN_T, "pruned_dtw")
+    ev_p._top_of = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_p = ev_p.eval(batch, gen)
+    torch.cuda.synchronize()
+    sec_p = time.perf_counter() - t0
+    if not all(np.isfinite(v).all() for v in res_p.metrics.values()):
+        fail("eval: pruned_dtw metrics not finite")
+    est = torch.rand(TRAIN_B, N_NODES, 32, 32, 3, generator=gen, device="cuda") * 2 - 1
+    tgt = torch.rand(TRAIN_B, TRAIN_T, 32, 32, 3, generator=gen, device="cuda") * 2 - 1
+    ends = batch.end_ind
+    cost = torch.rand(TRAIN_B, N_NODES, TRAIN_T, generator=gen, device="cuda")
+    warp_ms = time_ms(torch, lambda: dtw_warp_sequence(est, tgt, ends), reps=5, warmup=1)
+    align_ms = time_ms(torch, lambda: batched_dtw_alignment(cost, ends), reps=5, warmup=1)
+    print(f"eval: Evaluator 'pruned_dtw' top-of-10: {sec_p:.3f} s per batch, "
+          f"{10 * TRAIN_B * N_NODES / sec_p:.0f} decoded frames/s, mse best "
+          f"{res_p.metrics['mse'].min(1).mean():.6g}; DTW warp at [{TRAIN_B}, {N_NODES}, "
+          f"{TRAIN_T}] {warp_ms:.3f} ms (alignment alone {align_ms:.3f} ms)")
+    return launches
 
 
 class SharedNoise:
@@ -724,10 +989,13 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
     return trainer, launches
 
 
-def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag):
+def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag,
+                 tols=TOLS_TRAIN):
     """One train step of `make_model(device)` on the first 2 examples of the
     trainer's first batch, with the same injected noise, on the card and on
-    the CPU."""
+    the CPU: each loss relative to max(1, |CPU loss|) and each gradient
+    tensor's largest difference relative to its largest CPU gradient
+    within `tols`."""
     first = next(iter(DataLoader(dataset, TRAIN_B, shuffle=True, n_repeat=2,
                                  num_workers=4)))
     batch = AttrDict({k: v[:2] for k, v in first.items()})
@@ -746,7 +1014,7 @@ def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset
     grad_d = {n: (card_g[n] - g).abs().max().item() / max(1e-3, g.abs().max().item())
               for n, g in cpu_g.items()}
     worst = max(grad_d, key=grad_d.get)
-    if max(loss_d.values()) >= TOLS_TRAIN["loss"] or grad_d[worst] >= TOLS_TRAIN["grad"]:
+    if max(loss_d.values()) >= tols["loss"] or grad_d[worst] >= tols["grad"]:
         fail(f"{tag}: card vs CPU losses {loss_d}, worst gradient {worst} {grad_d[worst]}")
     print(f"{tag}: card vs CPU, one step on 2 examples, losses (relative): "
           + json.dumps({k: float(f"{v:.3e}") for k, v in loss_d.items()}))
@@ -776,6 +1044,7 @@ def main():
         from video_gcp_torch.data.loader import DataLoader
         from video_gcp_torch.load import load_model, set_float32_precision
         from video_gcp_torch.ops import cuda_build, fused_gn, soft_dtw
+        from video_gcp_torch.parallel import train_step as train_step_mod
         from video_gcp_torch.training import trainer as trainer_mod
     except ImportError as e:
         fail(f"video_gcp_torch is not beside chip_smoke.py: {e}")
@@ -783,16 +1052,27 @@ def main():
     if banned:
         fail(f"JAX modules loaded: {banned}")
     set_float32_precision()
+    start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        builds = [pool.submit(m.load_library) for m in (fused_gn, soft_dtw)]
-        for b in builds:
-            b.result()  # raises (non-zero exit) if nvcc fails
+    phase_s = {}  # seconds of each phase, printed at the end
+
+    def timed_phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    def build():
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+            builds = [pool.submit(m.load_library) for m in (fused_gn, soft_dtw)]
+            for b in builds:
+                b.result()  # raises (non-zero exit) if nvcc fails
+
+    timed_phase("build", build)
     print(f"build: K1 and K2 ({fused_gn.SOURCE}), K3 ({soft_dtw.SOURCE}) in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{phase_s['build']:.1f} s")
     for source in (fused_gn.SOURCE, soft_dtw.SOURCE):
         print(cuda_build.BUILD_LOGS.get(source, "").strip())
 
@@ -803,27 +1083,31 @@ def main():
                 lambda name: load_parent(Path(args.parent).resolve(), cuda_build, name),
                 ("fused_gn", "soft_dtw"))
         print(f"parent: K1, K2 and K3 of {args.parent}, timed in turns with this checkout's")
-    k1_rows, k1_sums = kernel_phase(torch, F, fused_gn, parent)
-    k2_rows, k2_sums = k2_phase(torch, F, fused_gn, parent)
-    k3_rows = k3_phase(torch, soft_dtw, parent_k3)
+    k1_rows, k1_sums = timed_phase("k1", kernel_phase, torch, F, fused_gn, parent)
+    k2_rows, k2_sums = timed_phase("k2", k2_phase, torch, F, fused_gn, parent)
+    k3_rows = timed_phase("k3", k3_phase, torch, soft_dtw, parent_k3)
     if args.kernels_only:
         print(json.dumps({"k1": k1_rows, "k2": k2_rows, "k3": k3_rows, "k1_sums": k1_sums,
                           "k2_sums": k2_sums}))
         print(gpu_name_and_power_limit())
         return
     soft_dtw.LAUNCHES = 0  # slice_phase resets K1's and K2's counts
-    serve_launches, plan_s = slice_phase(torch, fused_gn, load_model, AttrDict)
+    serve_launches, plan_s, model, cpu_model = timed_phase(
+        "serve", slice_phase, torch, fused_gn, load_model, AttrDict)
     if fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
         fail("K2 or K3 launched on the serving path")
-    trainer, (train_k1, train_k2, _) = train_phase(
-        torch, fused_gn, soft_dtw, trainer_mod, CONF, WEIGHTS, k3_per_step=0)
-    train_vs_cpu(torch, lambda d: load_model(CONF, weights=WEIGHTS, device=d), AttrDict,
-                 distributions, DataLoader, trainer.train_loader.dataset, "train")
+    trainer, (train_k1, train_k2, _) = timed_phase(
+        "train", train_phase, torch, fused_gn, soft_dtw, trainer_mod, CONF, WEIGHTS,
+        k3_per_step=0)
+    timed_phase("train_vs_cpu", train_vs_cpu, torch,
+                lambda d: load_model(CONF, weights=WEIGHTS, device=d), AttrDict,
+                distributions, DataLoader, trainer.train_loader.dataset, "train")
 
     # from the port's initialisation: --resume latest finds no checkpoint
     shutil.rmtree(EXP_DIR / "prediction/9room/gcp_adaptive", ignore_errors=True)
-    adaptive, (ad_k1, ad_k2, ad_k3) = train_phase(
-        torch, fused_gn, soft_dtw, trainer_mod, ADAPTIVE_CONF, "latest", k3_per_step=1)
+    adaptive, (ad_k1, ad_k2, ad_k3) = timed_phase(
+        "train_adaptive", train_phase, torch, fused_gn, soft_dtw, trainer_mod, ADAPTIVE_CONF,
+        "latest", k3_per_step=1)
     trained = {k: v.detach().cpu() for k, v in adaptive.model.state_dict().items()}
 
     def adaptive_model(device):
@@ -831,8 +1115,25 @@ def main():
         model.load_state_dict(trained)
         return model
 
-    train_vs_cpu(torch, adaptive_model, AttrDict, distributions, DataLoader,
-                 adaptive.train_loader.dataset, "train_adaptive")
+    timed_phase("train_adaptive_vs_cpu", train_vs_cpu, torch, adaptive_model, AttrDict,
+                distributions, DataLoader, adaptive.train_loader.dataset, "train_adaptive")
+    del adaptive
+
+    soft_dtw.LAUNCHES = 0
+    serve16_k1, (train16_k1, train16_k2) = timed_phase(
+        "bf16", bf16_phase, torch, fused_gn, load_model, AttrDict, train_step_mod, model,
+        trainer.model, trainer.train_loader.dataset, DataLoader)
+    if soft_dtw.LAUNCHES:
+        fail("K3 launched on a bf16 path")
+    timed_phase("train_bf16_vs_cpu", train_vs_cpu, torch,
+                lambda d: load_model(CONF, weights=WEIGHTS, device=d,
+                                     compute_dtype=torch.bfloat16),
+                AttrDict, distributions, DataLoader, trainer.train_loader.dataset,
+                "train_bf16", TOLS_TRAIN_BF16)
+    eval_k1 = timed_phase("eval", eval_phase, torch, fused_gn, soft_dtw, model, cpu_model,
+                          trainer.val_loader.dataset, DataLoader, AttrDict)
+    print(f"seconds per phase: {json.dumps(phase_s)}; since the start "
+          f"{time.perf_counter() - start:.1f} s")
 
     def line(name, rows, shape, dtype, replaces, by_path, source=fused_gn.SOURCE):
         top = next(r for r in rows if r["shape"] == shape and r["dtype"] == dtype)
@@ -846,13 +1147,16 @@ def main():
     kernels = [
         line("gn_lrelu_fwd", k1_rows, [CEM_BATCH * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:97",
-             dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1)),
+             dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1,
+                  serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1)),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
-             dict(serve=0, train=train_k2, train_adaptive=ad_k2)),
+             dict(serve=0, train=train_k2, train_adaptive=ad_k2, serve_bf16=0,
+                  train_bf16=train16_k2, eval=0)),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
-             dict(serve=0, train=0, train_adaptive=ad_k3), source=soft_dtw.SOURCE),
+             dict(serve=0, train=0, train_adaptive=ad_k3, serve_bf16=0, train_bf16=0,
+                  eval=0), source=soft_dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")
     print(json.dumps({"kernel_path_sums": {"gn_lrelu_fwd": k1_sums, "gn_lrelu_bwd": k2_sums}}))

@@ -5,6 +5,7 @@ one GPU.
     python3 scripts/profile_torch_slice.py [--batch 100] [--cudnn-benchmark]
     python3 scripts/profile_torch_slice.py --train [--batch 16]
     python3 scripts/profile_torch_slice.py --adaptive [--batch 16]
+    python3 scripts/profile_torch_slice.py [--train] --bf16
 
 Loads experiments/prediction/9room/gcp_tree with its ep74 weights on the
 card, warms up, then traces 5 planner calls ('plan', 'prior', predicted
@@ -13,6 +14,8 @@ torch.profiler; with --train, 5 train steps (RAdam, lr 2e-4) on one batch
 of `batch` RandomVideoDataset sequences of 100 frames; with --adaptive, the
 same train steps of experiments/prediction/9room/gcp_adaptive from the
 port's initialisation (soft-DTW binding, attentive inference, kernel K3).
+With --bf16 the model computes in bf16 over its float32 parameters
+(load_model(..., compute_dtype=torch.bfloat16)).
 Prints the host time per call, the device's busy time per call (sum of
 kernel times; one stream, so kernels do not overlap) and its idle share,
 the 25 kernels with the most device time, with their share and count, and
@@ -50,6 +53,8 @@ def main():
     ap.add_argument("--train", action="store_true", help="profile train steps")
     ap.add_argument("--adaptive", action="store_true",
                     help="profile train steps of 9room/gcp_adaptive")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 compute over the float32 parameters")
     ap.add_argument("--cudnn-benchmark", action="store_true",
                     help="let cuDNN time its algorithms per shape (warm-up calls)")
     args = ap.parse_args()
@@ -62,7 +67,8 @@ def main():
     args.train = args.train or args.adaptive
     conf = ADAPTIVE_CONF if args.adaptive else CONF
     torch.manual_seed(0)  # the adaptive model's initialisation
-    model = load_model(conf, weights=None if args.adaptive else CONF / "pretrained_ep74.npz")
+    model = load_model(conf, weights=None if args.adaptive else CONF / "pretrained_ep74.npz",
+                       compute_dtype=torch.bfloat16 if args.bf16 else None)
     gen = torch.Generator("cuda").manual_seed(0)
     if args.train:
         args.batch = args.batch or 16
@@ -100,7 +106,7 @@ def main():
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels) / REPS
-    print(f"batch {args.batch}: host {host_s * 1e3:.3f} ms per "
+    print(f"batch {args.batch}{' bf16' if args.bf16 else ''}: host {host_s * 1e3:.3f} ms per "
           f"{'step' if args.train else 'call'}, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / 1e6 / host_s:.3f}")

@@ -32,6 +32,12 @@ package, so on a machine with the card and without JAX it runs as
   its w has no grad_fn; two calls give equal outputs; int32 end_inds work
   through `soft_dtw` (one cast) and the kernel wrapper itself raises for
   them; a small adaptive train step launches K3 once and matches the CPU.
+- The evaluation DTW on the card equals the CPU's (the same D, the same
+  node indices) on random and on integer-valued costs.
+- A small GCP-tree computing in bf16 over float32 parameters on the card:
+  K1 on a bf16 x at every norm, float32 outputs within a mean of 1e-2 of
+  the same model in bf16 on the CPU, and a train step that leaves float32
+  parameters and gradients.
 """
 import numpy as np
 import pytest
@@ -42,8 +48,9 @@ from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.load import set_float32_precision
 from video_gcp_torch.models.hyperparameters import default_hparams
 from video_gcp_torch.models.tree import TreeModel
+from video_gcp_torch.models import nets
 from video_gcp_torch.models.nets import ConvEncoder
-from video_gcp_torch.ops import fused_gn
+from video_gcp_torch.ops import dtw, fused_gn
 from video_gcp_torch.ops import soft_dtw as sdtw
 from video_gcp_torch.parallel.train_step import make_optimizer, train_step
 
@@ -403,3 +410,61 @@ def test_small_adaptive_train_step_on_card_matches_cpu(card, monkeypatch):
             w = named[name].grad
             scale = max(1e-3, w.abs().max().item())
             assert (p.grad.cpu() - w).abs().max().item() <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_eval_dtw_on_card_matches_cpu(card, ties):
+    gen = torch.Generator().manual_seed(5)
+    cost = torch.rand(16, 127, 100, generator=gen)
+    if ties:
+        cost = torch.randint(0, 3, (16, 127, 100), generator=gen).float()
+    ends = torch.randint(0, 100, (16,), generator=gen)
+    ends[0], ends[-1] = 99, 0
+    assert torch.equal(dtw.min_cumsum(cost.to(card)).cpu(), dtw.min_cumsum(cost))
+    inds, dist = dtw.batched_dtw_alignment(cost.to(card), ends.to(card))
+    want_inds, want_dist = dtw.batched_dtw_alignment(cost, ends)
+    assert torch.equal(inds.cpu(), want_inds) and torch.equal(dist.cpu(), want_dist)
+
+
+def test_small_tree_in_bf16_on_card(card):
+    hp = default_hparams()
+    hp.overwrite(dict(batch_size=2, max_seq_len=10, img_sz=16, hierarchy_levels=3,
+                      matching_type="balanced", seq_enc="conv", tree_lstm="split_linear",
+                      lstm_init="mlp", regress_length=True,
+                      decoder_distribution="discrete_logistic_mixture"))
+    torch.manual_seed(0)
+    cpu = TreeModel(dict(hp), dtype=torch.bfloat16)
+    gpu = TreeModel(dict(hp), dtype=torch.bfloat16)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(card, memory_format=torch.channels_last)
+    rng = np.random.RandomState(1)
+    seq = torch.from_numpy((rng.rand(2, 10, 16, 16, 3) * 2 - 1).astype(np.float32))
+    inputs = AttrDict(I_0=seq[:, 0], I_g=seq[:, 9], end_ind=torch.tensor([9, 6]),
+                      z=torch.from_numpy(rng.randn(2, 7, 32).astype(np.float32)))
+    norm_inputs = []
+    for m in gpu.modules():
+        if isinstance(m, nets.GroupNorm):
+            m.register_forward_pre_hook(lambda mod, args: norm_inputs.append(args[0].dtype))
+    launches = fused_gn.LAUNCHES
+    with torch.inference_mode():
+        got = gpu(AttrDict({k: v.to(card) for k, v in inputs.items()}), phase="test")
+        want = cpu(inputs, phase="test")
+    torch.cuda.synchronize()
+    # 16x16 images: 4 conv levels, so 4 norms in each of the two encoder
+    # calls (start, goal) and in the decoder
+    assert fused_gn.LAUNCHES - launches == len(norm_inputs) == 12
+    assert set(norm_inputs) == {torch.bfloat16}
+    for k in ("images", "e_g_prime"):
+        assert got.tree[k].dtype == torch.float32
+        assert (got.tree[k].cpu() - want.tree[k]).abs().mean().item() < 1e-2, k
+
+    batch = AttrDict(traj_seq=seq, I_0=seq[:, 0], I_g=seq[:, 9], end_ind=torch.tensor([9, 6]),
+                     pad_mask=(torch.arange(10)[None] <= torch.tensor([[9], [6]])).float())
+    params = [p for p in gpu.parameters() if p.requires_grad]
+    before = [p.detach().clone() for p in params]
+    metrics = train_step(gpu.train(), make_optimizer(params, "radam"),
+                         AttrDict({k: v.to(card) for k, v in batch.items()}), 0,
+                         torch.Generator(card).manual_seed(0))
+    assert bool(metrics.grads_finite)
+    assert {p.dtype for p in params} == {p.grad.dtype for p in params} == {torch.float32}
+    assert sum(not torch.equal(p, b) for p, b in zip(params, before)) > len(params) // 2

@@ -4,8 +4,12 @@
   CPU in a subprocess: exit 0, finite logged totals, `weights_ep0` written;
   `--resume latest` then trains epoch 1 from it and validates, in a child
   that never loads jax, flax or video_gcp_tpu.
-- Without `--device` and without a GPU the trainer raises; flags of paths
-  not ported yet raise NotImplementedError.
+- `--val_metric_batches 1` adds val_psnr/ssim/mse to the validation,
+  `--val_sweep 1` validates every saved epoch, and `--metric 1` runs the
+  top-of-100 Evaluator: results_<it>.txt, the four channel-first .npy dumps
+  under the JAX Evaluator's names, and the eval records.
+- Without `--device` and without a GPU the trainer raises; a flag of a path
+  not ported yet (--dataset_val_sweep) raises NotImplementedError.
 - The config bundle, the checkpoint resolution, RandomVideoDataset and the
   loader's batches against the JAX package.
 """
@@ -90,12 +94,54 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         ModelTrainer(parse_args(["--path", TOY, "--feed_random_data", "1"]))
 
 
-@pytest.mark.parametrize("flag", ["--metric", "--val_sweep", "--dataset_val_sweep",
-                                  "--val_metric_batches"])
+@pytest.mark.parametrize("flag", ["--dataset_val_sweep"])
 def test_trainer_flags_not_ported_raise(monkeypatch, tmp_path, flag):
     monkeypatch.setenv("GCP_EXP_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
         ModelTrainer(parse_args([*FLAGS, flag, "4"]))
+
+
+def test_trainer_val_metrics_and_val_sweep(tmp_path):
+    out = _run(["-m", "video_gcp_torch.training.train", *FLAGS, "--num_epochs", "2",
+                "--val_metric_batches", "1"], tmp_path)
+    exp = tmp_path / "prediction/toy_random/gcp_tree"
+    assert "[val] epoch 0" in out and "| psnr" in out
+    events = read_events(exp / "events")
+    for k in ("val_psnr", "val_ssim", "val_mse"):
+        vals = [e["value"] for e in events if e["tag"] == k]
+        assert len(vals) == 2 and all(np.isfinite(vals)), k
+    assert 0 < vals[0] < 1  # mse in [0, 1]
+
+    out = _run(["-m", "video_gcp_torch.training.train", *FLAGS, "--val_sweep", "1",
+                "--val_metric_batches", "0"], tmp_path)
+    assert "[val] epoch 0" in out and "[val] epoch 1" in out and "| psnr" not in out
+    steps = [e["step"] for e in read_events(exp / "events")[len(events):]
+             if e["tag"] == "val_total_loss"]
+    assert steps == [64, 128]  # each epoch's checkpoint, at its step
+
+
+def test_trainer_metric_runs_the_evaluator(tmp_path):
+    out = _run(["-m", "video_gcp_torch.training.train", *FLAGS, "--metric", "1"], tmp_path)
+    exp = tmp_path / "prediction/toy_random/gcp_tree"
+    metrics = exp / "metrics"
+    lines = (metrics / "results_0.txt").read_text().splitlines()
+    assert [line.split(":")[0] for line in lines] == ["mse", "psnr", "ssim"]
+    csv = [line for line in out.splitlines() if line.count(",") == 8]
+    assert len(csv) == 1 and all(np.isfinite(float(x)) for x in csv[0].split(","))
+    # 32 val sequences of 16 frames at 16x16, channel-first
+    shapes = {"gt_seq_0.npy": (32, 15, 3, 16, 16), "gen_images_0.npy": (32, 15, 3, 16, 16),
+              "full_gen_seq_0.npy": (32, 15, 3, 16, 16),
+              "seq_samples_0.npy": (4, 5, 16, 3, 16, 16)}
+    for name, shape in shapes.items():
+        a = np.load(metrics / name)
+        assert a.shape == shape and np.isfinite(a).all(), name
+    events = read_events(exp / "events")
+    tags = {e["tag"] for e in events}
+    assert {"val_eval_mse", "val_eval_psnr", "val_eval_ssim",
+            "_eval/metric/mse/top100_mean", "_eval/verbose/ssim/all100_std"} <= tags
+    files = [e["file"] for e in events if "file" in e]
+    assert len(files) == 10 and all((exp / "events" / f).is_file() for f in files)
+    assert not (exp / "weights").exists()  # evaluates, does not train
 
 
 def test_trainer_resumes_from_pretrained_npz(monkeypatch, tmp_path):

@@ -82,7 +82,7 @@ class BaseVideoDataset:
 
     def preprocess_images(self, images: np.ndarray) -> np.ndarray:
         """uint8 NHWC at img_sz; the [-1, 1] normalization runs on the
-        device (models/base.py:to_float_images)."""
+        device (core/metrics.py:to_float_images)."""
         if images.ndim == 5:
             images = images[:, 0]  # camera axis
         if images.dtype != np.uint8:

@@ -11,6 +11,7 @@ import torch.nn as nn
 
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core import distributions
+from video_gcp_torch.core.metrics import to_float_images
 from video_gcp_torch.core.losses import LossTerm, l2_loss, total_loss
 from video_gcp_torch.core.schedules import kl_weight_at
 from video_gcp_torch.models import dlm
@@ -27,13 +28,6 @@ from video_gcp_torch.models.nets import (
     GaussianLogSigma,
     build_seq_encoder,
 )
-
-
-def to_float_images(x: torch.Tensor) -> torch.Tensor:
-    """uint8 [0, 255] -> float32 [-1, 1]; floats pass through unchanged."""
-    if x.dtype == torch.uint8:
-        return x.to(torch.float32) / 127.5 - 1.0
-    return x
 
 
 class BaseGCPModel(nn.Module):
@@ -101,8 +95,13 @@ class BaseGCPModel(nn.Module):
                     and self.hp.get("one_step_planner") != "sh_pred")
 
     @property
-    def dtype(self) -> torch.dtype:
+    def param_dtype(self) -> torch.dtype:
         return self.decoder.dense[0].weight.dtype
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype (flax's `dtype`); the parameters' by default."""
+        return self.decoder.compute_dtype or self.param_dtype
 
     def setup_core(self):
         hp = self.hp
@@ -147,12 +146,13 @@ class BaseGCPModel(nn.Module):
     # ----- forward pieces -----------------------------------------------------
 
     def preprocess_inputs(self, inputs: AttrDict) -> AttrDict:
-        """uint8 images -> [-1, 1] floats in the model dtype, then
-        non_goal_conditioned zeroing (base_gcp.py:163-175)."""
+        """uint8 images -> [-1, 1] floats in the parameters' dtype (the
+        encoder casts them to the compute dtype), then non_goal_conditioned
+        zeroing (base_gcp.py:163-175)."""
         inputs = inputs.copy()
         for key in ("traj_seq", "I_0", "I_g"):
             if key in inputs:
-                inputs[key] = to_float_images(inputs[key]).to(self.dtype)
+                inputs[key] = to_float_images(inputs[key]).to(self.param_dtype)
         if self.hp["non_goal_conditioned"]:
             if "traj_seq" in inputs:
                 seq = inputs.traj_seq.clone()

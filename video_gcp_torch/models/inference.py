@@ -16,9 +16,11 @@ import torch.nn as nn
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.models.nets import (
     MLP,
+    Casting,
     FixedPriorHead,
     GaussianHead,
     MaskedMultiheadAttention,
+    linear,
 )
 
 
@@ -50,7 +52,7 @@ class MatchedInference(nn.Module):
         return AttrDict(q_z=self.q(e_l, e_r, e_tilde), gamma=None)
 
 
-class AttentiveInference(nn.Module):
+class AttentiveInference(Casting, nn.Module):
     """Query MLP on (e_l, e_r), then n_attention_layers rounds of masked
     attention, each followed by a parameter-free layer norm and a predictor
     MLP with a skip connection that refines the query; the last round's
@@ -85,7 +87,9 @@ class AttentiveInference(nn.Module):
         for attn, pred in zip(self.attention_layers, self.predictor_layers):
             raw, gamma = attn(query, inf_enc_key_seq, inf_enc_seq, start_ind, end_ind)
             query = _layer_norm(pred(_layer_norm(raw)) + query)
-        return AttrDict(q_z=self.q(e_l, e_r, self.out(raw)), gamma=gamma)
+        dt, pdt = self.dtypes(self.out.weight)
+        e_tilde = linear(self.out, raw, dt).to(pdt)
+        return AttrDict(q_z=self.q(e_l, e_r, e_tilde), gamma=gamma)
 
 
 def _layer_norm(x: torch.Tensor) -> torch.Tensor:

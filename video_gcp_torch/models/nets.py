@@ -7,6 +7,14 @@ Images are NHWC at every public function, as in the JAX package. A conv layer
 sees the same memory as an NCHW tensor in `torch.channels_last` (a permuted
 view, no copy), and the fused GroupNorm kernel reads it back as NHWC.
 
+Compute dtype (flax's `dtype` over `param_dtype`): parameters keep their own
+dtype (float32, or float64 in the tests) and a module that holds weights
+computes in its `compute_dtype`, which `set_compute_dtype` sets on a whole
+model (None: the parameters' dtype). Each module casts its inputs and its
+weights where the JAX module casts them, and returns in the parameters'
+dtype where the JAX module returns float32. The GroupNorm parameters are
+not cast: K1 takes a bf16 x with float32 scale and bias, as flax's norm does.
+
 Submodule names follow one rule so that flax checkpoints map onto them
 mechanically (training/checkpoint.py:flax_to_torch): the flax auto-name
 `Name_k` becomes the torch path `name.k` (snake case, a ModuleList index).
@@ -28,9 +36,44 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
-def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW conv layer to NHWC x through channels_last views."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+class Casting:
+    """Mixin of the modules that compute in `compute_dtype` over
+    parameters of their own dtype; None computes in the parameters' dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def dtypes(self, weight: torch.Tensor) -> Tuple[torch.dtype, torch.dtype]:
+        """(compute dtype, parameter dtype), read off one of the weights."""
+        return self.compute_dtype or weight.dtype, weight.dtype
+
+
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Every casting module of `model` computes in `dtype` from now on."""
+    for m in model.modules():
+        if isinstance(m, Casting):
+            m.compute_dtype = dtype
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's Dense(dtype=dtype): input, kernel and bias cast to dtype."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Apply an NCHW conv layer to NHWC x through channels_last views, with
+    x and the weights cast to dtype (default: the weights' own; then it is
+    the layer's call, hooks included)."""
+    dtype = dtype or conv.weight.dtype
+    x = x.permute(0, 3, 1, 2).to(dtype)
+    if dtype == conv.weight.dtype:
+        y = conv(x)
+    elif isinstance(conv, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
+                               conv.padding, conv.output_padding, conv.groups, conv.dilation)
+    else:
+        y = conv._conv_forward(x, conv.weight.to(dtype), conv.bias.to(dtype))
+    return y.permute(0, 2, 3, 1)
 
 
 class GroupNorm(nn.Module):
@@ -68,9 +111,9 @@ def _n_levels(hp) -> int:
     return hp.get("n_conv_layers") or int(math.log2(hp["img_sz"]))
 
 
-class MLP(nn.Module):
+class MLP(Casting, nn.Module):
     """n_layers hidden Linear+LeakyReLU(0.2) layers and a linear head over
-    the concatenated inputs."""
+    the concatenated inputs; returns the parameters' dtype."""
 
     def __init__(self, in_size: int, out_size: int, mid_size: int,
                  n_layers: int = 3, final_activation: Optional[str] = None):
@@ -81,18 +124,20 @@ class MLP(nn.Module):
         self.final_activation = final_activation
 
     def forward(self, *inputs: torch.Tensor) -> torch.Tensor:
-        x = torch.cat(inputs, dim=-1)
+        dt, pdt = self.dtypes(self.dense[0].weight)
+        x = torch.cat([i.to(dt) for i in inputs], dim=-1)
         for layer in self.dense[:-1]:
-            x = _leaky(layer(x))
-        x = self.dense[-1](x)
+            x = _leaky(linear(layer, x, dt))
+        x = linear(self.dense[-1], x, dt)
         if self.final_activation == "tanh":
             x = torch.tanh(x)
-        return x
+        return x.to(pdt)
 
 
-class ConvEncoder(nn.Module):
+class ConvEncoder(Casting, nn.Module):
     """Stride-2 conv pyramid (k=4, 'SAME' = padding 1 on even sizes) to a
-    flat latent, plus the per-resolution activations as skips."""
+    flat latent in the parameters' dtype, plus the per-resolution
+    activations as skips in the compute dtype."""
 
     def __init__(self, hp):
         super().__init__()
@@ -106,18 +151,19 @@ class ConvEncoder(nn.Module):
         self.dense = nn.ModuleList([nn.Linear(chans[-1] * s * s, hp["nz_enc"])])
 
     def forward(self, img: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        dt, pdt = self.dtypes(self.dense[0].weight)
         x = img
         skips = []
         for conv, norm in zip(self.conv, self.group_norm):
-            x = norm(conv_nhwc(conv, x))
+            x = norm(conv_nhwc(conv, x, dt))
             skips.append(x)
-        return self.dense[0](x.reshape(x.shape[0], -1)), skips
+        return linear(self.dense[0], x.reshape(x.shape[0], -1), dt).to(pdt), skips
 
 
-class ConvDecoder(nn.Module):
-    """Transposed-conv pyramid from a flat latent back to an image, with skip
-    connections from the start-image encoder entering every
-    `skips_stride`-th level. Flax's ConvTranspose (k=4, s=2, 'SAME') is
+class ConvDecoder(Casting, nn.Module):
+    """Transposed-conv pyramid from a flat latent back to an image in the
+    parameters' dtype, with skip connections from the start-image encoder
+    entering every `skips_stride`-th level. Flax's ConvTranspose (k=4, s=2, 'SAME') is
     `ConvTranspose2d(padding=1)` with the kernel flipped (see the bridge)."""
 
     def __init__(self, hp, out_channels: Optional[int] = None,
@@ -151,20 +197,21 @@ class ConvDecoder(nn.Module):
 
     def forward(self, e: torch.Tensor,
                 skips: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
-        x = self.dense[0](e).reshape(e.shape[0], self.s0, self.s0, self.ch0)
+        dt, pdt = self.dtypes(self.dense[0].weight)
+        x = linear(self.dense[0], e, dt).reshape(e.shape[0], self.s0, self.s0, self.ch0)
         n = len(self.conv_transpose)
         for j, (deconv, norm) in enumerate(zip(self.conv_transpose,
                                                self.group_norm)):
             i = n - 1 - j
             if skips is not None and self._uses_skip(i):
-                skip = skips[i]
+                skip = skips[i].to(dt)
                 if skip.shape[0] != x.shape[0]:
                     # per-example skips over the folded node axis
                     skip = skip.repeat_interleave(x.shape[0] // skip.shape[0], 0)
                 x = torch.cat([x, skip], dim=-1)
-            x = norm(conv_nhwc(deconv, x))
-        x = conv_nhwc(self.conv[0], x)
-        return torch.tanh(x) if self.tanh_out else x
+            x = norm(conv_nhwc(deconv, x, dt))
+        x = conv_nhwc(self.conv[0], x, dt)
+        return (torch.tanh(x) if self.tanh_out else x).to(pdt)
 
 
 class GaussianLogSigma(nn.Module):
@@ -209,13 +256,18 @@ class FixedPriorHead(nn.Module):
         return unit_gaussian(ref.shape[:-1] + (self.nz,), ref.device, ref.dtype)
 
 
-class LSTMStack(nn.Module):
+class LSTMStack(Casting, nn.Module):
     """Multi-layer LSTM advancing one step. The state is packed as one tensor
     [..., n_layers * 2 * size], [c; h] per layer, so tree levels can
-    interleave and fuse states as plain tensors. Each layer is an
-    `nn.LSTMCell` (gates i, f, g, o); flax's OptimizedLSTMCell has no input
-    bias, so `bias_ih` holds zeros and is frozen (trained, it would move
-    the gate bias twice per step)."""
+    interleave and fuse states as plain tensors. Each layer holds the
+    weights of an `nn.LSTMCell` (gates i, f, g, o); flax's OptimizedLSTMCell
+    has no input bias, so `bias_ih` holds zeros and is frozen (trained, it
+    would move the gate bias twice per step).
+
+    As flax's cell under dtype=bf16, the state c and h, the gates and their
+    nonlinearities are in the compute dtype; the packed state and the output
+    return in the parameters' dtype. (The card's fused LSTM-cell kernel
+    evaluates the gates in float32 and rounds c and h once.)"""
 
     def __init__(self, in_size: int, size: int, n_layers: int):
         super().__init__()
@@ -228,24 +280,26 @@ class LSTMStack(nn.Module):
 
     def forward(self, packed: torch.Tensor, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt, pdt = self.dtypes(self.optimized_lstm_cell[0].weight_hh)
         lead = x.shape[:-1]
-        x = x.reshape(-1, x.shape[-1])
-        chunks = packed.reshape(-1, packed.shape[-1]).chunk(self.n_layers, -1)
+        x = x.reshape(-1, x.shape[-1]).to(dt)
+        chunks = packed.reshape(-1, packed.shape[-1]).to(dt).chunk(self.n_layers, -1)
         new = []
         for cell, chunk in zip(self.optimized_lstm_cell, chunks):
             c, h = chunk.chunk(2, -1)
-            h, c = cell(x, (h, c))
+            h, c = torch.lstm_cell(x, (h, c), *(w.to(dt) for w in (
+                cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh)))
             new += [c, h]
             x = h
-        return (torch.cat(new, -1).reshape(lead + (packed.shape[-1],)),
-                x.reshape(lead + (self.size,)))
+        return (torch.cat(new, -1).reshape(lead + (packed.shape[-1],)).to(pdt),
+                x.reshape(lead + (self.size,)).to(pdt))
 
 
 def lstm_state_size(hp) -> int:
     return hp["n_lstm_layers"] * 2 * hp["nz_mid_lstm"]
 
 
-class ConvSeqEncoder(nn.Module):
+class ConvSeqEncoder(Casting, nn.Module):
     """1-D temporal conv (k=3, 'SAME' = padding 1) + LeakyReLU over per-frame
     latents [B, T, D] (blox ConvSeqEncodingModule)."""
 
@@ -261,10 +315,11 @@ class ConvSeqEncoder(nn.Module):
             for _ in range(hp.get("conv_inf_enc_layers", 1)))
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:
-        x = seq.transpose(1, 2)
+        dt, pdt = self.dtypes(self.conv[0].weight)
+        x = seq.transpose(1, 2).to(dt)
         for conv in self.conv:
-            x = _leaky(conv(x))
-        return x.transpose(1, 2)
+            x = _leaky(conv._conv_forward(x, conv.weight.to(dt), conv.bias.to(dt)))
+        return x.transpose(1, 2).to(pdt)
 
 
 def build_seq_encoder(hp) -> Optional[nn.Module]:
@@ -280,7 +335,7 @@ def build_seq_encoder(hp) -> Optional[nn.Module]:
     raise ValueError(f"unknown seq_enc {kind!r}")
 
 
-class MaskedMultiheadAttention(nn.Module):
+class MaskedMultiheadAttention(Casting, nn.Module):
     """One layer of time-masked multi-head attention (the JAX package's
     MaskedMultiheadAttention, blox MultiheadAttention as used by the
     attentive inference). The query is already projected to nz_attn_key.
@@ -290,7 +345,12 @@ class MaskedMultiheadAttention(nn.Module):
     node axis broadcasts; the JAX module projects a copy per node, which
     gives the same values and, summed over the copies, the same weight
     gradients. flax's auto-names Dense_0..2 (query, key, value) become
-    `dense.0..2`; `log_attn_temp` is the learned softmax temperature."""
+    `dense.0..2`; `log_attn_temp` is the learned softmax temperature.
+
+    The projections and the logits are in the compute dtype. Dividing by the
+    learned temperature, a parameter, promotes the logits to the parameters'
+    dtype (jnp's promotion), so the softmax and the weighted sum run there;
+    under a fixed temperature they stay in the compute dtype."""
 
     def __init__(self, hp, d_query: int):
         super().__init__()
@@ -316,15 +376,16 @@ class MaskedMultiheadAttention(nn.Module):
         end_ind [B, N], the inclusive span of frames each node attends to.
         Returns the attended values [B, N, nz_enc] and the attention
         weights averaged over heads, [B, N, T]."""
+        dt, pdt = self.dtypes(self.dense[0].weight)
         b, n = query.shape[:2]
         t, h = keys.shape[1], self.n_heads
         d_head = self.d_key // h
-        q = self.dense[0](query).reshape(b, n, h, d_head)
-        k = self.dense[1](keys).reshape(b, t, h, d_head)
-        v = self.dense[2](values).reshape(b, t, h, self.nz_enc // h)
+        q = linear(self.dense[0], query, dt).reshape(b, n, h, d_head)
+        k = linear(self.dense[1], keys, dt).reshape(b, t, h, d_head)
+        v = linear(self.dense[2], values, dt).reshape(b, t, h, self.nz_enc // h)
         logits = torch.einsum("bnhd,bthd->bnht", q, k) / math.sqrt(d_head)
         if self.log_attn_temp is not None:
-            logits = logits / torch.exp(self.log_attn_temp)
+            logits = logits.to(pdt) / torch.exp(self.log_attn_temp)
         else:
             logits = logits / self.temperature
         t_idx = torch.arange(t, device=query.device)
@@ -332,5 +393,6 @@ class MaskedMultiheadAttention(nn.Module):
         logits = torch.where(mask[:, :, None, :], logits,
                              torch.full_like(logits, -1e30))
         gamma = torch.softmax(logits, dim=-1)  # [B, N, h, T]
-        attended = torch.einsum("bnht,bthd->bnhd", gamma, v)
-        return attended.reshape(b, n, self.nz_enc), gamma.mean(dim=2)
+        attended = torch.einsum("bnht,bthd->bnhd", gamma, v.to(gamma.dtype))
+        return (attended.reshape(b, n, self.nz_enc).to(pdt),
+                gamma.mean(dim=2).to(pdt))

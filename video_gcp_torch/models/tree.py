@@ -27,7 +27,12 @@ from video_gcp_torch.evaluation.eval_binding import basic_timeline_index
 from video_gcp_torch.models.base import BaseGCPModel
 from video_gcp_torch.models.binding import AdaptiveBinding, BalancedBinding
 from video_gcp_torch.models.inference import AttentiveInference, MatchedInference
-from video_gcp_torch.models.nets import MLP, FixedPriorHead, GaussianHead
+from video_gcp_torch.models.nets import (
+    MLP,
+    FixedPriorHead,
+    GaussianHead,
+    set_compute_dtype,
+)
 from video_gcp_torch.models.tree_lstm import LSTMInitializer, TreeLSTMPredictor
 from video_gcp_torch.ops.tree_index import depthfirst2layers, interleave
 
@@ -113,9 +118,15 @@ class TreeLevel(nn.Module):
 
 class TreeModel(BaseGCPModel):
     """Start/goal encoding, level-by-level tree production, dense decode,
-    pruning logits, and the planner's timeline outputs (tree.py:14-124)."""
+    pruning logits, and the planner's timeline outputs (tree.py:14-124).
 
-    def __init__(self, hp):
+    `dtype` is the compute dtype over the parameters, as the JAX
+    TreeModel's (tree.py:45): torch.bfloat16 runs the networks in bf16
+    while the parameters, their gradients, the latents, the decoded
+    images and every loss stay in the parameters' dtype. None computes in
+    the parameters' dtype."""
+
+    def __init__(self, hp, dtype: Optional[torch.dtype] = None):
         super().__init__(hp)
         hp = self.hp
         if self.regress_decoder_actions:
@@ -134,6 +145,7 @@ class TreeModel(BaseGCPModel):
             self.binding = AdaptiveBinding(hp)
         else:
             raise NotImplementedError(hp["matching_type"])
+        set_compute_dtype(self, dtype)
 
     def predict_sequence(self, inputs: AttrDict, outputs: AttrDict,
                          end_ind: torch.Tensor, mode: str,
@@ -143,7 +155,7 @@ class TreeModel(BaseGCPModel):
         hidden_l = hidden_r = None
         z_layers = None
         if "z" in inputs:
-            z_layers = depthfirst2layers(inputs.z.to(self.dtype))
+            z_layers = depthfirst2layers(inputs.z.to(self.param_dtype))
 
         levels = []
         for d in range(self.depth):

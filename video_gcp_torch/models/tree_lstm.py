@@ -8,7 +8,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from video_gcp_torch.models.nets import MLP, LSTMStack, lstm_state_size
+from video_gcp_torch.models.nets import MLP, Casting, LSTMStack, linear, lstm_state_size
 
 
 def _no_conv_lstm(hp):
@@ -18,12 +18,14 @@ def _no_conv_lstm(hp):
             "item 10")
 
 
-class TreeLSTMPredictor(nn.Module):
+class TreeLSTMPredictor(Casting, nn.Module):
     """p(e_sg | h_l, h_r, e_l, e_r, z, [e_0, e_g]).
 
     fusion 'sum' adds the parents' packed states, 'linear' projects their
     concatenation, 'split_linear' projects each (layer, c|h) chunk pair with
-    its own Linear (the published choice)."""
+    its own Linear (the published choice). The projections and the output
+    head compute in the compute dtype; the fused state and the subgoal
+    latent return in the parameters' dtype."""
 
     def __init__(self, hp, fusion: str, in_size: int):
         super().__init__()
@@ -43,15 +45,16 @@ class TreeLSTMPredictor(nn.Module):
 
     def forward(self, hidden_l: torch.Tensor, hidden_r: torch.Tensor,
                 *inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt, pdt = self.dtypes(self.dense[0].weight)
         if self.fusion == "sum":
             fused = hidden_l + hidden_r
         else:
             pairs = zip(hidden_l.chunk(self.n_chunks, -1),
                         hidden_r.chunk(self.n_chunks, -1))
-            fused = torch.cat([proj(torch.cat(p, -1))
-                               for proj, p in zip(self.proj, pairs)], -1)
+            fused = torch.cat([linear(proj, torch.cat(p, -1), dt)
+                               for proj, p in zip(self.proj, pairs)], -1).to(pdt)
         new_state, out = self.lstm_stack[0](fused, torch.cat(inputs, -1))
-        return new_state, torch.tanh(self.dense[0](out))
+        return new_state, torch.tanh(linear(self.dense[0], out, dt)).to(pdt)
 
 
 class LSTMInitializer(nn.Module):

@@ -1,9 +1,11 @@
-"""The trainer of the port: epoch loop, validation NLL, checkpoints,
-resume (training/trainer.py of the JAX package).
+"""The trainer of the port: epoch loop, validation, checkpoints, resume,
+and the top-of-100 metric evaluation (training/trainer.py of the JAX
+package).
 
     python -m video_gcp_torch.training.train --path <conf_dir>
         [--resume latest|<epoch>|<dir>|<weights.npz>] [--num_epochs N]
         [--feed_random_data 1] [--deterministic 1] [--device cuda|cpu]
+        [--metric 1] [--val_sweep 1] [--val_metric_batches N]
 
 Runs on the card unless `--device cpu` is given; without a GPU it raises.
 Per step: `parallel.train_step.train_step` (forward in phase 'train' /
@@ -11,10 +13,15 @@ mode 'posterior', with K3 in the adaptive binding's matching, backward
 through K1+K2 on the card, finite mask, RAdam). Without trained weights
 (9room/gcp_adaptive), `--resume latest` finds no checkpoint and training
 starts from the port's initialisation.
+
 Validation computes the loss values with the train-mode posterior
-(train.py:211-215). The image metrics and visualizations of the JAX trainer
-wait for the evaluation slice (ROADMAP queue 1, item 7); the h5 datasets
-wait until the published data is in the repository.
+(train.py:211-215) and, on the first `--val_metric_batches` batches, PSNR,
+SSIM and MSE of one prior sample warped onto the GT timeline by DTW.
+`--metric 1` runs the Evaluator (top-of-100 with the configuration's
+`metric_pruning_scheme`) over the val set instead of training;
+`--val_sweep 1` validates every saved epoch. The trainer's image logging
+waits for the rest of the visualizations (ROADMAP item 13), and the h5
+datasets and `--dataset_val_sweep` for item 14.
 """
 from __future__ import annotations
 
@@ -29,8 +36,12 @@ import numpy as np
 import torch
 
 from video_gcp_torch.core.attrdict import AttrDict
+from video_gcp_torch.core.metrics import mse, psnr, ssim, to_float_images
 from video_gcp_torch.data.datasets import RandomVideoDataset
 from video_gcp_torch.data.loader import DataLoader
+from video_gcp_torch.evaluation.eval_binding import dense_sample
+from video_gcp_torch.evaluation.eval_logger import TBEvalLogger
+from video_gcp_torch.evaluation.evaluator import PRIOR_INPUTS, Evaluator
 from video_gcp_torch.load import set_float32_precision
 from video_gcp_torch.parallel.train_step import make_optimizer, make_val_step, train_step
 from video_gcp_torch.training import checkpoint as ckpt
@@ -74,8 +85,11 @@ def parse_args(argv=None):
     p.add_argument("--verbose_timing", default=0, type=int,
                    help="synchronize the device after every step and record "
                         "its wall time (ModelTrainer.step_seconds)")
-    p.add_argument("--val_metric_batches", default=0, type=int,
-                   help="image metrics on val batches: not ported yet, keep 0")
+    p.add_argument("--val_metric_batches", default=4, type=int,
+                   help="val batches for the quick per-epoch PSNR/SSIM/MSE of "
+                        "one prior sample (the whole val split when it has "
+                        "fewer); the reported protocol is the top-of-100 "
+                        "evaluation, --metric 1")
     p.add_argument("--num_epochs", default=0, type=int,
                    help="override configuration['num_epochs'] when > 0")
     p.add_argument("--train_deadline", default=0, type=float,
@@ -89,14 +103,9 @@ def parse_args(argv=None):
 class ModelTrainer:
     def __init__(self, args):
         self.args = args
-        for flag, item in (("metric", 7), ("val_sweep", 7), ("dataset_val_sweep", 7)):
-            if getattr(args, flag):
-                raise NotImplementedError(
-                    f"--{flag} is not ported yet; ROADMAP queue 1, item {item}")
-        if args.val_metric_batches:
+        if args.dataset_val_sweep:
             raise NotImplementedError(
-                "--val_metric_batches: the image metrics are not ported yet; "
-                "ROADMAP queue 1, item 7 (pass 0)")
+                "--dataset_val_sweep is not ported yet; ROADMAP queue 1, item 14")
         self.device = torch.device(args.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ModelTrainer: no CUDA device; pass --device cpu "
@@ -177,6 +186,16 @@ class ModelTrainer:
         if args.num_epochs > 0:
             self.conf["num_epochs"] = args.num_epochs
         try:
+            if args.val_sweep:
+                for epoch in ckpt.get_epochs(self.exp_path):
+                    path = os.path.join(ckpt.weights_dir(self.exp_path),
+                                        ckpt.ckpt_name(epoch))
+                    self.step = ckpt.load_checkpoint(path, self.model, self.optimizer)
+                    self.val(epoch)
+                return
+            if args.metric:
+                self.run_metric_eval()
+                return
             if not args.train:
                 self.val(self.start_epoch)
                 return
@@ -192,6 +211,24 @@ class ModelTrainer:
                     self.val(epoch)
         finally:
             self.logger.close()
+
+    def run_metric_eval(self):
+        """The top-of-100 evaluation on the val set (--metric 1; JAX
+        trainer.py:372-398): the Evaluator's dumps under `metrics/`, its
+        `eval/...` records and `val_eval_<metric>` in the event log."""
+        evaluator = Evaluator(
+            self.model, self.exp_path, self.conf, max_seq_len=self.hp["max_seq_len"],
+            pruning_scheme=self.conf["metric_pruning_scheme"],
+            top_of_100=bool(self.conf["top_of_100_eval"]),
+            eval_logger=TBEvalLogger(os.path.join(self.exp_path, "metrics"), self.logger))
+        generator = torch.Generator(self.device).manual_seed(123)
+        for batch in self.val_loader:
+            evaluator.eval(batch, generator)
+        summary = evaluator.dump_results(self.step)
+        for k, v in summary.items():
+            self.logger.log_scalar(v, "eval_" + k, self.step, "val")
+        self.logger.flush()
+        return summary
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -237,17 +274,42 @@ class ModelTrainer:
 
     def val(self, epoch: int):
         losses_acc = {}
+        img_metrics = {"psnr": [], "ssim": [], "mse": []}
         t0 = time.time()
-        for batch in self.val_loader:
+        for n, batch in enumerate(self.val_loader, 1):
             for k, v in self.val_step(batch, self.step, self.generator).items():
                 losses_acc.setdefault(k, []).append(float(v))
+            if n <= self.args.val_metric_batches:
+                self._quick_image_metrics(batch, img_metrics)
         for k, vals in losses_acc.items():
             self.logger.log_scalar(np.mean(vals), k + "_loss", self.step, "val")
+        for k, vals in img_metrics.items():
+            if vals:
+                self.logger.log_scalar(np.mean(vals), k, self.step, "val")
         print(f"[val] epoch {epoch} "
               + " ".join(f"{k}: {np.mean(v):.4f}" for k, v in losses_acc.items())
+              + (f" | psnr {np.mean(img_metrics['psnr']):.2f}" if img_metrics["psnr"] else "")
               + f" ({time.time() - t0:.1f}s)", flush=True)
         self.logger.flush()
         return {k: float(np.mean(v)) for k, v in losses_acc.items()}
+
+    @torch.no_grad()
+    def _quick_image_metrics(self, batch, acc):
+        """PSNR, SSIM and MSE of one prior sample on one val batch, averaged
+        over the padded frames without the first/last crop (JAX
+        trainer.py:488-516). The sample's image logging (_log_val_images)
+        waits for ROADMAP item 13."""
+        batch = AttrDict(batch)
+        batch.traj_seq = to_float_images(batch.traj_seq)
+        out = self.model(AttrDict({k: batch[k] for k in PRIOR_INPUTS if k in batch}),
+                         phase="test", mode="prior", generator=self.generator)
+        # the df-ordered nodes warped onto the GT timeline by DTW (JAX
+        # trainer.py:616-628)
+        pred = dense_sample(out, batch, "dtw", self.hp["max_seq_len"])
+        mask = batch.pad_mask
+        denom = mask.sum()
+        for name, fn in (("psnr", psnr), ("ssim", ssim), ("mse", mse)):
+            acc[name].append(float((fn(pred, batch.traj_seq) * mask).sum() / denom))
 
     def _dump_debug_data(self, batch, metrics):
         """Non-finite gradients: save the batch and metrics for offline
