@@ -94,6 +94,25 @@ Run from the root of the repository, with no arguments:
    against the CPU. Then 'pruned_dtw' at top-of-10. Prints seconds per
    batch, decoded frames/s (top_of x B x 127 nodes / s) and the DTW warp's
    ms at [16, 127, 100].
+10. Plan phase: closed-loop visual planning on 9room/gcp_tree with ep74 on
+   the card. ep74 is written as a port checkpoint under the build
+   directory, the port's PRM expert writes start/goal configurations 0-2
+   (experiments/data_gen/nav_9rooms_start_goal, on the CPU), and
+   planning.run's ControlManager runs the control benchmark's tasks 0-2
+   (experiments/control/9room/gcp_tree, T=200 env steps each) from copies
+   of both configs under the build directory. Checks 15 K1 launches per
+   simulator call and 5 per closed-loop action and no K2 or K3, finite
+   plans with images in [-1, 1], finite actions, the task and score
+   pickles and results file and finite compute_control_perf metrics, and
+   the first simulator call (every candidate, the same z and end_ind) and
+   the first action against the CPU. Prints the candidates of each
+   simulator call per _plan, the warm ms per simulator call at each
+   candidate count and its bytes to the host, ms per _plan and its
+   simulator share, one _plan's host time, device-busy time and idle share
+   (torch.profiler), ms per action, env steps/s, seconds per task, and the
+   success rate and penalized path cost over the 3 tasks. The K1 phase
+   also holds K1 at the control path's sites (encoder at n = 10, 5, 1,
+   decoder at 127 n nodes).
 
 Prints the seconds of each phase, the per-path sums and the kernels' JSON
 lines, the card's name and power limit, and as its last line {"ok": true,
@@ -170,6 +189,15 @@ BF16_WARM = CEM_ITERS  # warm serving calls of each model
 BF16_MOVE_GRAD = 1e-6  # a bf16 step's gradient at least this large moves its parameter
 TOL_EVAL_METRIC = 1e-4  # tests/test_torch_evaluator.py, relative to max(1, |value|)
 EXP_DIR = ROOT / "video_gcp_torch/_build/chip_smoke_exp"  # git-ignored
+# the control path's model calls (experiments/control/9room/gcp_tree): the
+# simulator's candidates per call (sampling_rates_per_layer [10, 10], then
+# n_ll_samples 5, then the chosen one) and one frame per closed-loop action
+CONTROL_CANDIDATES = (10, 5, 1)
+CONTROL = "experiments/control/9room/gcp_tree/mod_hyper.py"
+DATA_GEN = "experiments/data_gen/nav_9rooms_start_goal/mod_hyper.py"
+CONTROL_TASKS = 3
+K1_PER_SIM_CALL, K1_PER_ACTION = 15, 5  # 5 encoder sites x 2 + 5 decoder; 5
+TOL_ACTION = 1e-4  # one closed-loop action, card vs CPU (tests/test_torch_planning.py)
 
 
 def fail(msg):
@@ -329,6 +357,9 @@ def kernel_phase(torch, F, fused_gn, parent=None):
             cases += [((batch * N_NODES,) + s, d) for s in DEC_SITES
                       for d in ("float32", "bfloat16")]
     cases.append(((32 * 511, 64, 64, 16), "bfloat16"))  # bench.py top decode level
+    for n in CONTROL_CANDIDATES:  # the control path's simulator calls and actions
+        cases += [((n,) + s, "float32") for s in ENC_SITES]
+        cases += [((n * N_NODES,) + s, "float32") for s in DEC_SITES]
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
     print("K1 gn_lrelu_fwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
@@ -1022,6 +1053,270 @@ def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset
           f"{grad_d[worst]:.3e} ({worst}, relative to its largest CPU gradient)")
 
 
+class _Recorder:
+    """Wraps the planning classes' methods for one control run: counts and
+    times the simulator calls, _plan calls, closed-loop actions and tasks,
+    keeps the first simulator call and the first action for the CPU checks,
+    checks every plan, and profiles the second _plan with torch.profiler.
+    Splits each _plan's host time over the simulator's rollouts (the model
+    call with its copies, and the capping after it), the learned-cost calls,
+    the tree optimizer's own numpy and the sampler's draws of candidates."""
+
+    def __init__(self, torch, sim_mod, policy_mod, infra_sim_mod, cost_mod,
+                 sampler_mod):
+        self.torch = torch
+        self.sim, self.plans, self.actions, self.tasks = [], [], [], []
+        self.first_sim = self.first_action = self.policy = self.profile = None
+        self.host = dict(rollout=0.0, cost=0.0, optimize=0.0, sample=0.0)  # seconds
+        self.saved = [(sim_mod.GCPSimulator, "run_model"),
+                      (policy_mod.ImageCEMPolicy, "_plan"),
+                      (policy_mod.ImageCEMPolicy, "_infer_action"),
+                      (infra_sim_mod.Sim, "take_sample")]
+        self.saved = [(cls, name, getattr(cls, name)) for cls, name in self.saved]
+        for cls, name, orig in self.saved:
+            setattr(cls, name, getattr(self, "_" + name.lstrip("_"))(orig))
+        for cls, name, key in ((sim_mod.GCPSimulator, "rollout", "rollout"),
+                               (cost_mod.LearnedCostEstimate, "__call__", "cost"),
+                               (sampler_mod.HierarchicalTreeCEMSampler, "optimize",
+                                "optimize"),
+                               (sampler_mod.HierarchicalTreeCEMSampler, "sample",
+                                "sample")):
+            orig = getattr(cls, name)
+            self.saved.append((cls, name, orig))
+            setattr(cls, name, self._timed(orig, key))
+
+    def _timed(self, orig, key):
+        host = self.host
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                host[key] += time.perf_counter() - t0
+        return timed
+
+    def restore(self):
+        for cls, name, orig in self.saved:
+            setattr(cls, name, orig)
+
+    def _run_model(self, orig):
+        rec = self
+
+        def run_model(sim, inputs):
+            t0 = time.perf_counter()
+            out = orig(sim, inputs)  # ends with the copies to the host
+            rec.sim.append((inputs.z.shape[0], time.perf_counter() - t0, sim.host_bytes))
+            if rec.first_sim is None:
+                rec.first_sim = ({k: inputs[k].cpu() for k in ("I_0", "I_g", "z")}, out)
+            return out
+        return run_model
+
+    def _plan(self, orig):
+        rec, torch = self, self.torch
+
+        def plan(policy, state, goal, step):
+            rec.policy = policy
+            n0, host0 = len(rec.sim), dict(rec.host)
+            if len(rec.plans) == 1:  # the second, warm _plan: profiled
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    orig(policy, state, goal, step)
+                    torch.cuda.synchronize()
+                    host_ms = (time.perf_counter() - t0) * 1e3
+                busy = sum(e.self_device_time_total for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                kernels = sum(e.count for e in prof.key_averages()
+                              if e.device_type == torch.autograd.DeviceType.CUDA)
+                rec.profile = dict(host_ms=host_ms, device_busy_ms=busy,
+                                   idle_share=1 - busy / host_ms, device_ops=kernels)
+                ms = None
+            else:
+                t0 = time.perf_counter()
+                orig(policy, state, goal, step)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            host = {k: (rec.host[k] - host0[k]) * 1e3 for k in rec.host}
+            sim_ms = sum(t for _, t, _ in rec.sim[n0:]) * 1e3
+            # the learned cost is called only from the tree optimizer
+            rec.plans.append(dict(ms=ms, schedule=[c for c, _, _ in rec.sim[n0:]],
+                                  sim_ms=sim_ms, capping_ms=host["rollout"] - sim_ms,
+                                  cost_ms=host["cost"],
+                                  optimizer_ms=host["optimize"] - host["cost"],
+                                  sample_ms=host["sample"]))
+            frames = np.asarray(policy.image_plan)[:, :32 * 32 * 3]
+            if not (np.isfinite(policy.image_plan).all() and np.abs(frames).max() <= 1 + 1e-6):
+                fail("a plan is not finite or has images outside [-1, 1]")
+            if not np.isfinite(np.asarray(policy.latent_plan)).all():
+                fail("a plan's latents are not finite")
+        return plan
+
+    def _infer_action(self, orig):
+        rec = self
+
+        def infer_action(policy, img, target):
+            t0 = time.perf_counter()
+            action = orig(policy, img, target)  # ends with the copy to the host
+            rec.actions.append(time.perf_counter() - t0)
+            if not np.isfinite(action).all():
+                fail(f"non-finite closed-loop action {action}")
+            if rec.first_action is None:
+                rec.first_action = (np.array(img), np.array(target), action)
+            return action
+        return infer_action
+
+    def _take_sample(self, orig):
+        rec = self
+
+        def take_sample(sim, index):
+            t0 = time.perf_counter()
+            out = orig(sim, index)
+            rec.tasks.append(time.perf_counter() - t0)
+            return out
+        return take_sample
+
+
+def _config_copy(rel):
+    """An unchanged copy of an experiment config under the build directory,
+    so that the run's logs land there and not in the checkout's
+    experiments/ (whose control log/ holds the JAX package's results)."""
+    dst = EXP_DIR / rel
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(ROOT / rel, dst)
+    return dst
+
+
+def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
+    """Closed-loop visual planning on 9room/gcp_tree with ep74 on the card:
+    start/goal configurations from the port's data generation, then the
+    control benchmark's tasks 0-2 through planning.run's ControlManager."""
+    import copy
+    import types
+    from video_gcp_torch.core.attrdict import load_pickle
+    from video_gcp_torch.evaluation.compute_control_perf import compute_control_perf
+    from video_gcp_torch.planning import planner_policy
+    from video_gcp_torch.planning.cem import cost_fcn as cost_mod
+    from video_gcp_torch.planning.cem import sampler as sampler_mod
+    from video_gcp_torch.planning.cem import simulator as sim_mod
+    from video_gcp_torch.planning.infra.sim import simulator as infra_sim_mod
+    from video_gcp_torch.planning.run import ControlManager
+    from video_gcp_torch.training.checkpoint import load_model_state
+
+    shutil.rmtree(EXP_DIR / "experiments", ignore_errors=True)
+    shutil.rmtree(EXP_DIR / "control", ignore_errors=True)
+    data_dir = EXP_DIR / "data"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    ckpt = EXP_DIR / "prediction/9room/gcp_tree/weights/weights_ep74"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(model=load_model_state(WEIGHTS), optimizer={}, step=74),
+               ckpt / "state.pt")
+    os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
+    os.environ["GCP_DATA_DIR"] = str(data_dir)
+    shutil.copytree(ROOT / "experiments/prediction/base_configs",
+                    EXP_DIR / "experiments/prediction/base_configs")
+    last = str(CONTROL_TASKS - 1)
+    t0 = time.perf_counter()
+    ControlManager([str(_config_copy(DATA_GEN)), "--device", "cpu", "--start_idx", "0",
+                    "--end_idx", last]).run()
+    datagen_s = time.perf_counter() - t0
+    print(f"plan: start/goal configurations 0-{last} by the PRM expert (CPU) in "
+          f"{datagen_s:.2f} s")
+
+    control = _config_copy(CONTROL)
+    rec = _Recorder(torch, sim_mod, planner_policy, infra_sim_mod, cost_mod, sampler_mod)
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0  # the control path
+    t0 = time.perf_counter()
+    try:
+        ControlManager([str(control), "--start_idx", "0", "--end_idx", last]).run()
+    finally:
+        rec.restore()
+    run_s = time.perf_counter() - t0
+    k1, k2, k3 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES
+    n_sim, n_act = len(rec.sim), len(rec.actions)
+    want = K1_PER_SIM_CALL * n_sim + K1_PER_ACTION * n_act
+    if k1 != want or k2 or k3:
+        fail(f"control path: K1/K2/K3 launches {k1}/{k2}/{k3}, expected {want}/0/0 "
+             f"({n_sim} simulator calls, {n_act} actions)")
+    print(f"plan: control run of {CONTROL_TASKS} tasks in {run_s:.2f} s; K1 launches {k1} "
+          f"= {K1_PER_SIM_CALL} x {n_sim} simulator calls + {K1_PER_ACTION} x {n_act} "
+          "closed-loop actions; no K2 or K3")
+
+    log = control.parent / "log"
+    for name in [f"task_{i}.pkl" for i in range(CONTROL_TASKS)] + [
+            f"scores_0to{last}.pkl", f"results_0to{last}.txt"]:
+        if not (log / name).is_file():
+            fail(f"control run wrote no {name}")
+    perf = compute_control_perf(load_pickle(log / f"scores_0to{last}.pkl"))
+    if not all(np.isfinite(v) for v in perf.values()):
+        fail(f"control metrics not finite: {perf}")
+
+    # the real candidate schedule, and the warm times per call
+    schedules = [p["schedule"] for p in rec.plans]
+    print(f"plan: {len(rec.plans)} _plan calls; simulator candidates per call in each: "
+          f"{schedules}")
+    by_count = {}
+    for i, (n, s, nbytes) in enumerate(rec.sim):
+        by_count.setdefault(n, []).append((s, nbytes))
+    sim_ms = {}
+    for n, calls in sorted(by_count.items(), reverse=True):
+        warm = [s for s, _ in calls[1:]] or [calls[0][0]]
+        sim_ms[n] = statistics.median(warm) * 1e3
+        print(f"plan: simulator call of {n} candidates: {sim_ms[n]:.2f} ms warm median "
+              f"({len(calls)} calls, the first {calls[0][0] * 1e3:.2f} ms), "
+              f"{calls[0][1]} bytes to the host")
+    if rec.profile is None:
+        fail(f"control run made {len(rec.plans)} _plan calls; the second is profiled")
+    warm_plans = [p["ms"] for p in rec.plans[2:]]
+    plan_ms = statistics.median(warm_plans) if warm_plans else None
+    plan_sim_ms = statistics.median(p["sim_ms"] for p in rec.plans[2:]) if warm_plans else None
+    act_ms = statistics.median(rec.actions[1:]) * 1e3
+    split = {k: statistics.median(p[k] for p in rec.plans[2:]) if warm_plans else None
+             for k in ("sim_ms", "capping_ms", "cost_ms", "optimizer_ms", "sample_ms")}
+    if warm_plans:
+        split["rest_ms"] = statistics.median(
+            p["ms"] - p["sim_ms"] - p["capping_ms"] - p["cost_ms"] - p["optimizer_ms"]
+            - p["sample_ms"] for p in rec.plans[2:])
+    print("plan: host time of a warm _plan, medians over the same calls (ms): "
+          + json.dumps({k: None if v is None else round(v, 3) for k, v in split.items()}))
+    print(f"plan: _plan {fmt(plan_ms)} ms warm median of {len(warm_plans)}, of which "
+          f"simulator calls {fmt(plan_sim_ms)} ms (the first "
+          f"{rec.plans[0]['ms']:.2f} ms); profiled _plan: " + json.dumps(
+              {k: round(v, 3) for k, v in rec.profile.items()}))
+    print(f"plan: closed-loop action {act_ms:.3f} ms warm median of {n_act}; "
+          f"{n_act / sum(rec.tasks):.1f} env steps/s over the tasks; "
+          f"seconds per task {[round(t, 2) for t in rec.tasks]}")
+    print(f"plan: over {CONTROL_TASKS} tasks (a smoke run, not a quality result): success "
+          f"rate {perf['success_rate']:.3f}, penalized path cost {perf['penalized_cost']:.3f}, "
+          f"Room2Goal {perf['rooms_to_goal_mean']:.3f}")
+
+    # the first simulator call and the first action, card against the CPU
+    cpu_model = copy.deepcopy(rec.policy.planner).cpu()
+    first_in, card_out = rec.first_sim
+    inputs = AttrDict(first_in, end_ind=torch.from_numpy(card_out.end_ind))
+    with torch.inference_mode():
+        ref = cpu_model(inputs, phase="plan", mode="prior")
+    diffs = {}
+    for k in ("timeline_images", "timeline_latents", "actions", "regressed_state"):
+        diffs[k] = float(np.abs(card_out[k] - ref[k].numpy()).max())
+        if not diffs[k] < TOLS_SLICE[k]:
+            fail(f"control path: the first simulator call's {k} differs from the CPU "
+                 f"by {diffs[k]} (tolerance {TOLS_SLICE[k]})")
+    img, target, got = rec.first_action
+    cpu_policy = types.SimpleNamespace(planner=cpu_model, device=torch.device("cpu"))
+    cpu_policy._encode = lambda im: planner_policy.ImageCEMPolicy._encode(cpu_policy, im)
+    want_action = planner_policy.ImageCEMPolicy._infer_action(cpu_policy, img, target)
+    diffs["action"] = float(np.abs(got - want_action).max())
+    if not diffs["action"] < TOL_ACTION:
+        fail(f"control path: a closed-loop action differs from the CPU by "
+             f"{diffs['action']} (tolerance {TOL_ACTION})")
+    print(f"plan: card vs CPU, the first simulator call ({len(first_in['z'])} candidates, "
+          "same z and end_ind) and the first action, max abs diff: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
+    return k1
+
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1132,6 +1427,7 @@ def main():
                 "train_bf16", TOLS_TRAIN_BF16)
     eval_k1 = timed_phase("eval", eval_phase, torch, fused_gn, soft_dtw, model, cpu_model,
                           trainer.val_loader.dataset, DataLoader, AttrDict)
+    plan_k1 = timed_phase("plan", plan_phase, torch, fused_gn, soft_dtw, AttrDict)
     print(f"seconds per phase: {json.dumps(phase_s)}; since the start "
           f"{time.perf_counter() - start:.1f} s")
 
@@ -1148,15 +1444,15 @@ def main():
         line("gn_lrelu_fwd", k1_rows, [CEM_BATCH * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:97",
              dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1,
-                  serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1)),
+                  serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1, plan=plan_k1)),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
              dict(serve=0, train=train_k2, train_adaptive=ad_k2, serve_bf16=0,
-                  train_bf16=train16_k2, eval=0)),
+                  train_bf16=train16_k2, eval=0, plan=0)),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
              dict(serve=0, train=0, train_adaptive=ad_k3, serve_bf16=0, train_bf16=0,
-                  eval=0), source=soft_dtw.SOURCE),
+                  eval=0, plan=0), source=soft_dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")
     print(json.dumps({"kernel_path_sums": {"gn_lrelu_fwd": k1_sums, "gn_lrelu_bwd": k2_sums}}))

@@ -34,6 +34,9 @@ package, so on a machine with the card and without JAX it runs as
   them; a small adaptive train step launches K3 once and matches the CPU.
 - The evaluation DTW on the card equals the CPU's (the same D, the same
   node indices) on random and on integer-valued costs.
+- The CEM simulator's rollouts of a small GCP-tree and one closed-loop
+  action of the 9-room ep74 ImageCEMPolicy, card against CPU (images 2e-4,
+  latents 5e-4, actions and states 1e-4), with K1 at every norm.
 - A small GCP-tree computing in bf16 over float32 parameters on the card:
   K1 on a bf16 x at every norm, float32 outputs within a mean of 1e-2 of
   the same model in bf16 on the CPU, and a train step that leaves float32
@@ -468,3 +471,67 @@ def test_small_tree_in_bf16_on_card(card):
     assert bool(metrics.grads_finite)
     assert {p.dtype for p in params} == {p.grad.dtype for p in params} == {torch.float32}
     assert sum(not torch.equal(p, b) for p, b in zip(params, before)) > len(params) // 2
+
+
+def _small_planner_hp():
+    hp = default_hparams()
+    hp.overwrite(dict(batch_size=1, max_seq_len=15, img_sz=16, hierarchy_levels=4,
+                      matching_type="balanced", tree_lstm="sum", regress_length=True,
+                      length_pred_weight=0.0, attach_inv_mdl=True,
+                      inv_mdl_params=dict(n_actions=2), attach_state_regressor=True,
+                      state_dim=2, n_actions=2, nz_vae=8))
+    return hp
+
+
+def test_simulator_on_card_matches_cpu(card):
+    """The CEM simulator's rollouts of a small GCP-tree, card against CPU,
+    with the same injected z and end_ind (length_pred_weight=0 keeps the
+    given end_ind): images 2e-4, latents 5e-4, actions and states 1e-4; K1
+    at each of the 12 norms (16x16: 4 per encoder call and decoder)."""
+    from video_gcp_torch.planning.cem.simulator import GCPImageSimulator
+
+    torch.manual_seed(0)
+    cpu = TreeModel(dict(_small_planner_hp())).eval()
+    gpu = TreeModel(dict(_small_planner_hp())).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(card)
+    rng = np.random.RandomState(0)
+    state = rng.randint(0, 256, (1, 16, 16, 3)).astype(np.uint8)
+    goal = rng.rand(1, 16, 16, 3).astype(np.float32)
+    z = rng.randn(10, 15, 8).astype(np.float32)
+    launches = fused_gn.LAUNCHES
+    got = GCPImageSimulator(gpu, append_latent=True).rollout(state, goal, z, 15)
+    assert fused_gn.LAUNCHES - launches == 12
+    want = GCPImageSimulator(cpu, append_latent=True).rollout(state, goal, z, 15)
+    for i in range(len(z)):
+        g, w = got.predictions[i], want.predictions[i]
+        assert g.shape == w.shape == (15, 16 * 16 * 3 + 32)
+        assert np.abs(g[:, :-32] - w[:, :-32]).max() < 2e-4
+        assert np.abs(g[:, -32:] - w[:, -32:]).max() < 5e-4
+        assert np.abs(got.actions[i] - want.actions[i]).max() < 1e-4
+        assert np.abs(got.states[i] - want.states[i]).max() < 1e-4
+
+
+def test_infer_action_on_card_matches_cpu(card):
+    """One closed-loop action of the 9-room ep74 ImageCEMPolicy, card
+    against CPU, within 1e-4; 5 K1 launches (the encoder's norms)."""
+    from pathlib import Path
+
+    from video_gcp_torch.planning.run import load_control_config
+
+    repo = Path(__file__).resolve().parent.parent
+    weights = str(repo / "experiments/prediction/9room/gcp_tree/pretrained_ep74.npz")
+    policy = load_control_config(repo / "experiments/control/9room/gcp_tree/mod_hyper.py")[
+        "policy"]
+    cem = dict(policy["cem_params"], cost_config=dict(policy["cem_params"]["cost_config"],
+                                                      load_epoch=weights))
+    conf = dict(policy, load_epoch=weights, cem_params=cem)
+    on_card = policy["type"](dict(T=200, device="cuda"), conf)
+    on_cpu = policy["type"](dict(T=200, device="cpu"), conf)
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+    target = rng.randn(128).astype(np.float32)
+    launches = fused_gn.LAUNCHES
+    got = on_card._infer_action(img, target)
+    assert fused_gn.LAUNCHES - launches == 5
+    assert np.abs(got - on_cpu._infer_action(img, target)).max() < 1e-4

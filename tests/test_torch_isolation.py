@@ -53,3 +53,79 @@ def test_load_model_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model(REPO / CONF)
+
+
+_PLANNING_SCRIPT = f"""
+import sys
+import numpy as np
+from video_gcp_torch.evaluation.compute_control_perf import compute_control_perf
+from video_gcp_torch.planning import planner_policy
+from video_gcp_torch.planning.run import ControlManager, load_control_config
+
+control = load_control_config("experiments/control/9room/gcp_tree/mod_hyper.py")
+assert control["policy"]["type"] is planner_policy.ImageCEMPolicy
+data_gen = load_control_config("experiments/data_gen/nav_9rooms_start_goal/mod_hyper.py")
+agent = data_gen["agent"]["type"](dict(data_gen["agent"]))
+policy = data_gen["policy"]["type"](dict(agent._hp), dict(data_gen["policy"]),
+                                    **agent.env.env_policy_params())
+np.random.seed(0)
+data, obs, out = agent.sample(policy, 0)
+assert obs["images"].shape[2:] == (32, 32, 3) and len(out) > 1
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "video_gcp_tpu", "cv2"))
+print("LOADED", loaded)
+"""
+
+
+def test_planning_imports_no_jax_and_no_opencv():
+    """The planning CLI's modules, both experiment configs it runs, and a PRM
+    expert episode in the env load no jax, flax, video_gcp_tpu or cv2."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("GCP_DATA_DIR", None)
+    proc = subprocess.run([sys.executable, "-c", _PLANNING_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_planning_run_defaults_to_the_card(monkeypatch, tmp_path):
+    from video_gcp_torch.planning.run import ControlManager
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("GCP_EXP_DIR", str(tmp_path))
+    monkeypatch.setenv("GCP_DATA_DIR", str(tmp_path))
+    conf = tmp_path / "experiments/control/toy/gcp_tree/mod_hyper.py"
+    conf.parent.mkdir(parents=True)
+    conf.write_text((REPO / "experiments/control/toy/gcp_tree/mod_hyper.py").read_text())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ControlManager([str(conf)]).run()
+
+
+def test_planner_policy_defaults_to_the_card(monkeypatch):
+    from video_gcp_torch.planning.run import load_control_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    policy = load_control_config(REPO / "experiments/control/9room/gcp_tree/mod_hyper.py")[
+        "policy"]
+    weights = str(REPO / CONF / "pretrained_ep74.npz")
+    cem = dict(policy["cem_params"], cost_config=dict(policy["cem_params"]["cost_config"],
+                                                      load_epoch=weights))
+    conf = dict(policy, load_epoch=weights, cem_params=cem)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        policy["type"](dict(T=200), conf)
+    planner = policy["type"](dict(T=200, device="cpu"), conf)  # asked for the CPU
+    assert next(planner.planner.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("gpu_id, ngpu, devices, want", [
+    (0, 1, 4, ["cuda:0", "cuda:0", "cuda:0"]),
+    (0, 2, 4, ["cuda:0", "cuda:1", "cuda:0"]),
+    (1, 4, 2, ["cuda:1", "cuda:0", "cuda:1"]),
+])
+def test_planning_workers_spread_over_the_cards(monkeypatch, gpu_id, ngpu, devices, want):
+    from video_gcp_torch.planning.run import worker_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: devices)
+    assert [worker_device("cuda", gpu_id, ngpu, i) for i in range(3)] == want
+    assert worker_device("cpu", gpu_id, ngpu, 1) == "cpu"

@@ -186,3 +186,13 @@ def load_checkpoint(path, model, optimizer=None) -> int:
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])
     return state["step"]
+
+
+def load_model_state(path) -> Dict[str, torch.Tensor]:
+    """The model's state_dict from a checkpoint directory (`state.pt`) or a
+    pretrained npz of the JAX package (through `flax_to_torch`)."""
+    if str(path).endswith(".npz"):
+        return flax_to_torch(load_pretrained_npz(path))
+    state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    return state["model"]
