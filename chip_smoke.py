@@ -14,22 +14,25 @@ Run from the root of the repository, with no arguments:
 2. K1 phase: K1 against its plain PyTorch twin on the card at every
    GroupNorm site of the 9-room GCP-tree (5 encoder, 5 decoder) at batch 16
    and at the CEM batch of 100 candidates, the train step's encoder on its
-   1,600 frames, in f32 and bf16, plus the largest shape of the repo,
+   1,600 frames, in f32 and bf16, 9room/gcp_sequential's decoder on its
+   1,584 frames (16 x 99) in f32, plus the largest shape of the repo,
    [16352, 64, 64, 16] bf16. Prints per shape the kernel's time (CUDA
    events, median of 25), its own device time (torch.profiler, 10 calls),
    the plain twin's time, the time of F.group_norm + F.leaky_relu (a
    yardstick the port never calls), the bound, the wrapper's host time per
    call (best of 3 x 50 calls issued back to back) and the max difference; then, per
    path, the sums of the times and bounds over a plan call's, a B=16
-   rollout's and a train step's K1 sites, in f32 and in bf16.
+   rollout's and a train step's K1 sites, in f32 and in bf16, and over
+   gcp_sequential's train step in f32.
 3. K2 phase: K2 against its twin at the 15 norm shapes of a training step
    at B=16, T=100 (encoder on 1600 frames and on the 16 start and goal
-   frames, decoder on 2032 nodes) in f32 and in bf16, and at the two
-   largest of bench.py's train step in bf16. Inputs are moved clear of
-   LeakyReLU's kink (fused_gn.clear_of_kink) so that both sign tests agree.
-   Prints the same columns and the sums over a train step's 20 K2 sites
-   in each dtype; the yardstick is the autograd backward of F.group_norm +
-   F.leaky_relu.
+   frames, decoder on 2032 nodes) in f32 and in bf16, at the 5 decoder
+   shapes of 9room/gcp_sequential's train step (1,584 frames) in f32, and
+   at the two largest of bench.py's train step in bf16. Inputs are moved
+   clear of LeakyReLU's kink (fused_gn.clear_of_kink) so that both sign
+   tests agree. Prints the same columns and the sums over a train step's
+   20 K2 sites in each dtype (and over gcp_sequential's 20 in f32); the
+   yardstick is the autograd backward of F.group_norm + F.leaky_relu.
 4. K3 phase: K3 against its row-order twin on the card at the adaptive
    training shape [16, 127, 100] (B = 16 matrices of 127 nodes x 100
    frames) and at the largest shape the repo names, [16, 511, 500], with
@@ -64,8 +67,9 @@ Run from the root of the repository, with no arguments:
 7. Adaptive train phase: the trainer on the card, as `python -m
    video_gcp_torch.training.train --path
    experiments/prediction/9room/gcp_adaptive --feed_random_data 1
-   --num_epochs 1 --skip_first_val 1 --deterministic 1` runs it: 32 steps
-   at B=16, T=100 from the port's initialisation (no checkpoint). Checks
+   --num_epochs 1 --skip_first_val 1 --deterministic 1` runs it, its 256
+   random sequences cut to 64: 8 steps at B=16, T=100 from the port's
+   initialisation (no checkpoint). Checks
    20 K1, 20 K2 and 1 K3 launch per step, finite losses and gradients, that
    every parameter with a gradient moved; prints the warm ms per step,
    training frames/s, the peak device memory and the soft-DTW stability gap
@@ -96,9 +100,9 @@ Run from the root of the repository, with no arguments:
    ms at [16, 127, 100].
 10. Plan phase: closed-loop visual planning on 9room/gcp_tree with ep74 on
    the card. ep74 is written as a port checkpoint under the build
-   directory, the port's PRM expert writes start/goal configurations 0-2
+   directory, the port's PRM expert writes start/goal configurations 0-1
    (experiments/data_gen/nav_9rooms_start_goal, on the CPU), and
-   planning.run's ControlManager runs the control benchmark's tasks 0-2
+   planning.run's ControlManager runs the control benchmark's tasks 0-1
    (experiments/control/9room/gcp_tree, T=200 env steps each) from copies
    of both configs under the build directory. Checks 15 K1 launches per
    simulator call and 5 per closed-loop action and no K2 or K3, finite
@@ -110,9 +114,27 @@ Run from the root of the repository, with no arguments:
    candidate count and its bytes to the host, ms per _plan and its
    simulator share, one _plan's host time, device-busy time and idle share
    (torch.profiler), ms per action, env steps/s, seconds per task, and the
-   success rate and penalized path cost over the 3 tasks. The K1 phase
+   success rate and penalized path cost over the 2 tasks. The K1 phase
    also holds K1 at the control path's sites (encoder at n = 10, 5, 1,
    decoder at 127 n nodes).
+
+11. h5 phase (run right after the train phase): the port's PRM expert makes
+   40 nav_9rooms trajectories on the host (experiments/data_gen/nav_9rooms,
+   T=100, 128x128 frames, one a file) into a temporary GCP_DATA_DIR through
+   planning.run's ControlManager, from a copy of the config under the build
+   directory; every file is read back through video_gcp_torch/data/h5.py
+   with its keys, shapes and dtypes. Then 9room/gcp_tree and
+   9room/gcp_sequential train from those files at full width through
+   ModelTrainer (--resume none, 2 epochs of 4 steps at B=16, T=100 through
+   the Nav9Rooms re-renderer, a val pass each epoch): 20 K1 and 20 K2
+   launches per step and no K3, finite losses, gradients and val losses,
+   every parameter with a gradient moved; one step of each on 2 examples
+   card against CPU, as in 6. Prints seconds per generated trajectory, the
+   trainer's wait for each batch (t_data) against each synced step, per
+   epoch (cold, then warm render cache), a step's device time
+   (torch.profiler), and (once, with the first model's dataset) the
+   re-render of one batch on the host, cold and warm. The run imports neither h5py nor cv2: both are set to None in
+   sys.modules.
 
 Prints the seconds of each phase, the per-path sums and the kernels' JSON
 lines, the card's name and power limit, and as its last line {"ok": true,
@@ -159,11 +181,18 @@ ENC_SITES, DEC_SITES = SITE_SHAPES, SITE_SHAPES[::-1][1:] + [(32, 32, 16)]
 N_NODES = 127  # 2^7 - 1 at hierarchy_levels=7
 CEM_BATCH, CEM_ITERS, ROLLOUT_BATCH = 100, 3, 16
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 100, 32  # 256 / 16 x epoch_cycles_train 2
+# the adaptive run's 256 random sequences cut to 64: 64 / 16 x epoch_cycles_train 2
+ADAPTIVE_STEPS = 8
 NORMS_PER_STEP = 20  # 5 sites x 3 encoder calls (sequence, I_0, I_g) + 5 decoder
-# K2 at the train step's 15 norm shapes, in f32 and in bf16 (the bf16 path)
+# 9room/gcp_sequential's decoder: one frame per step after I_0, B x (T - 1)
+SEQ_DEC_BATCH = TRAIN_B * (TRAIN_T - 1)
+# K2 at the train step's 15 norm shapes, in f32 and in bf16 (the bf16 path),
+# and at the sequential model's 5 decoder shapes in f32 (its encoder's are
+# the tree's)
 K2_SHAPES = ([((b,) + s, d) for d in ("float32", "bfloat16")
               for b, sites in ((TRAIN_B * TRAIN_T, ENC_SITES), (TRAIN_B, ENC_SITES),
                                (TRAIN_B * N_NODES, DEC_SITES)) for s in sites]
+             + [((SEQ_DEC_BATCH,) + s, "float32") for s in DEC_SITES]
              + [((TRAIN_B * N_NODES, 64, 64, 16), "bfloat16"),  # bench.py's train
                 ((TRAIN_B * TRAIN_T, 32, 32, 16), "bfloat16")])  # step at 64x64
 K2_FLOPS_PER_ELEMENT = 20  # three passes: stats, sums, dx
@@ -195,9 +224,17 @@ EXP_DIR = ROOT / "video_gcp_torch/_build/chip_smoke_exp"  # git-ignored
 CONTROL_CANDIDATES = (10, 5, 1)
 CONTROL = "experiments/control/9room/gcp_tree/mod_hyper.py"
 DATA_GEN = "experiments/data_gen/nav_9rooms_start_goal/mod_hyper.py"
-CONTROL_TASKS = 3
+CONTROL_TASKS = 2  # 2 of the benchmark's 100 tasks: the script's time
 K1_PER_SIM_CALL, K1_PER_ACTION = 15, 5  # 5 encoder sites x 2 + 5 decoder; 5
 TOL_ACTION = 1e-4  # one closed-loop action, card vs CPU (tests/test_torch_planning.py)
+# the h5 phase: nav_9rooms from the PRM expert (T=100, 128x128 frames, one
+# trajectory a file); the global split 0.994 / 0.006 keeps 39 of 40 files
+# for training (4 batches of 16 an epoch at epoch_cycles_train 2) and 1 for val
+H5_DATA_GEN = "experiments/data_gen/nav_9rooms/mod_hyper.py"
+H5_FILES, H5_EPOCHS = 40, 2  # epoch 0 with a cold render cache, epoch 1 warm
+H5_CONFS = (("gcp_tree", CONF), ("gcp_sequential", ROOT / "experiments/prediction/9room/gcp_sequential"))
+H5_LAYOUT = {"actions": ((100, 2), "float64"), "images": ((101, 1, 128, 128, 3), "uint8"),
+             "pad_mask": ((101,), "float64"), "states": ((101, 5), "float64")}
 
 
 def fail(msg):
@@ -316,7 +353,8 @@ K3_TAGS = ("soft_dtw_kernel",)
 def path_sums(tag, rows, keys, paths):
     """Sums of `keys` over the norm sites of each of `paths`, in f32 and
     (as `<path>_bf16`) in bf16: a plan call's 15 launches, a B=16
-    rollout's 15, a train step's 20."""
+    rollout's 15, a train step's 20 (the tree's and the sequential
+    model's)."""
     by = {(tuple(r["shape"]), r["dtype"]): r for r in rows}
 
     def sites(dec_batch, enc_calls):  # enc_calls: (batch, calls) of the encoder
@@ -325,7 +363,9 @@ def path_sums(tag, rows, keys, paths):
 
     sites_of = dict(plan_call=sites(CEM_BATCH * N_NODES, [(CEM_BATCH, 2)]),
                  rollout=sites(ROLLOUT_BATCH * N_NODES, [(ROLLOUT_BATCH, 2)]),
-                 train_step=sites(TRAIN_B * N_NODES, [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]))
+                 train_step=sites(TRAIN_B * N_NODES, [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]),
+                 train_step_sequential=sites(SEQ_DEC_BATCH,
+                                             [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]))
     out = {}
     for path in paths:
         for dtype, name in (("float32", path), ("bfloat16", f"{path}_bf16")):
@@ -356,6 +396,7 @@ def kernel_phase(torch, F, fused_gn, parent=None):
         if batch != TRAIN_B * TRAIN_T:  # the train step decodes B=16 trees
             cases += [((batch * N_NODES,) + s, d) for s in DEC_SITES
                       for d in ("float32", "bfloat16")]
+    cases += [((SEQ_DEC_BATCH,) + s, "float32") for s in DEC_SITES]  # gcp_sequential
     cases.append(((32 * 511, 64, 64, 16), "bfloat16"))  # bench.py top decode level
     for n in CONTROL_CANDIDATES:  # the control path's simulator calls and actions
         cases += [((n,) + s, "float32") for s in ENC_SITES]
@@ -409,7 +450,7 @@ def kernel_phase(torch, F, fused_gn, parent=None):
         del x, x_nchw
         torch.cuda.empty_cache()
     sums = path_sums("K1", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
-                     ("plan_call", "rollout", "train_step"))
+                     ("plan_call", "rollout", "train_step", "train_step_sequential"))
     return rows, sums
 
 
@@ -480,7 +521,7 @@ def k2_phase(torch, F, fused_gn, parent=None):
         del x, dy, xl, wl, bl, yl, dyl
         torch.cuda.empty_cache()
     sums = path_sums("K2", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
-                     ("train_step",))
+                     ("train_step", "train_step_sequential"))
     return rows, sums
 
 
@@ -941,9 +982,11 @@ class SharedNoise:
                 fail(f"noise draws differ between runs: {self.pos}")
 
 
-def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_step):
+def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_step,
+                n_steps=TRAIN_STEPS):
     """The JAX command's training run of `conf` on the card, through
-    ModelTrainer, from `resume` (--resume)."""
+    ModelTrainer, from `resume` (--resume), its random sequences cut to
+    `n_steps` steps."""
     tag = "train" if k3_per_step == 0 else "train_adaptive"
     os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
     args = trainer_mod.parse_args([
@@ -951,6 +994,8 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
         "--num_epochs", "1", "--skip_first_val", "1", "--deterministic", "1",
         "--verbose_timing", "1"])
     trainer = trainer_mod.ModelTrainer(args)  # device 'cuda', the default
+    loader = trainer.train_loader
+    loader.dataset.n_seqs = n_steps * TRAIN_B // loader.n_repeat
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     steps = []
     real_step = trainer_mod.train_step
@@ -978,8 +1023,8 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
     copies = fused_gn.BWD_DY_COPIES
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    if len(steps) != TRAIN_STEPS or trainer.step != TRAIN_STEPS:
-        fail(f"{tag}: {len(steps)} steps, expected {TRAIN_STEPS}")
+    if len(steps) != n_steps or trainer.step != n_steps:
+        fail(f"{tag}: {len(steps)} steps, expected {n_steps}")
     per_step = sorted({(a, b, c) for a, b, c, _ in steps})
     if per_step != [(NORMS_PER_STEP, NORMS_PER_STEP, k3_per_step)]:
         fail(f"{tag}: K1/K2/K3 launches per step {per_step}, expected "
@@ -1000,14 +1045,14 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
         fail(f"{tag}: parameters with a gradient did not change: {unchanged}")
     static = [n for n, p in trainer.model.named_parameters()
               if torch.equal(p.detach(), before[n])]
-    warm = statistics.median(trainer.step_seconds[3:TRAIN_STEPS])
+    warm = statistics.median(trainer.step_seconds[3:n_steps])
     first = {k: float(v) for k, v in steps[0][3].items() if v.dim() == 0}
     last = {k: float(v) for k, v in steps[-1][3].items() if v.dim() == 0}
-    print(f"{tag}: {conf.name}, {TRAIN_STEPS} steps of B={TRAIN_B} T={TRAIN_T} in "
+    print(f"{tag}: {conf.name}, {n_steps} steps of B={TRAIN_B} T={TRAIN_T} in "
           f"{wall:.2f} s (checkpoint included); K1/K2/K3 launches per step "
           f"{per_step[0]}, total {launches}")
     print(f"{tag}: step 0 {trainer.step_seconds[0] * 1e3:.2f} ms; warm ms per step "
-          f"(median of steps 3-31) {warm * 1e3:.2f}; training frames/s "
+          f"(median of steps 3-{n_steps - 1}) {warm * 1e3:.2f}; training frames/s "
           f"{TRAIN_B * TRAIN_T / warm:.1f}; peak device memory {peak_gib:.3f} GiB; "
           f"BWD_DY_COPIES {copies}")
     print(f"{tag}: parameters that did not move (no gradient): {static}")
@@ -1190,7 +1235,7 @@ def _config_copy(rel):
 def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
     """Closed-loop visual planning on 9room/gcp_tree with ep74 on the card:
     start/goal configurations from the port's data generation, then the
-    control benchmark's tasks 0-2 through planning.run's ControlManager."""
+    control benchmark's tasks 0-1 through planning.run's ControlManager."""
     import copy
     import types
     from video_gcp_torch.core.attrdict import load_pickle
@@ -1315,6 +1360,163 @@ def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
           + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
     return k1
 
+def h5_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+             load_model):
+    """nav_9rooms data made on the host by the port's PRM expert and written
+    as h5 files through the port's HDF5 module, read back, then 9room/gcp_tree
+    and 9room/gcp_sequential trained from them at full width through
+    ModelTrainer with a val pass each epoch, and one step of each held card
+    against CPU. Returns each model's K1/K2/K3 launches."""
+    from video_gcp_torch.data import h5
+    from video_gcp_torch.planning.run import ControlManager
+
+    data_dir = EXP_DIR / "h5_data"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    shutil.rmtree(EXP_DIR / "experiments", ignore_errors=True)
+    os.environ["GCP_DATA_DIR"] = str(data_dir)
+    os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
+    t0 = time.perf_counter()
+    ControlManager([str(_config_copy(H5_DATA_GEN)), "--device", "cpu", "--start_idx", "0",
+                    "--end_idx", str(H5_FILES - 1)]).run()
+    gen_s = time.perf_counter() - t0
+    files = sorted((data_dir / "nav_9rooms").glob("*.h5"))
+    if len(files) != H5_FILES:
+        fail(f"h5: the data generation wrote {len(files)} files, expected {H5_FILES}")
+    t0 = time.perf_counter()
+    for path in files:
+        with h5.File(path, "r") as f:
+            if list(f) != ["traj0", "traj_per_file"] or int(f["traj_per_file"][()]) != 1:
+                fail(f"h5: {path.name} holds {list(f)}")
+            got = {k: (f[f"traj0/{k}"].shape, str(f[f"traj0/{k}"].dtype)) for k in f["traj0"]}
+            if got != H5_LAYOUT:
+                fail(f"h5: {path.name} traj0 holds {got}, expected {H5_LAYOUT}")
+            if not np.isfinite(f["traj0/states"][()]).all():
+                fail(f"h5: {path.name} has non-finite states")
+    read_s = time.perf_counter() - t0
+    print(f"h5: {H5_FILES} nav_9rooms trajectories by the PRM expert (host) in {gen_s:.2f} s, "
+          f"{gen_s / H5_FILES:.3f} s per trajectory; every file read back through "
+          f"video_gcp_torch/data/h5.py in {read_s:.2f} s with its keys and shapes")
+    # the re-render is the same for both models: it is timed on the first
+    return {name: h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader,
+                           AttrDict, load_model, name, conf, probe_render=i == 0)
+            for i, (name, conf) in enumerate(H5_CONFS)}
+
+
+def h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+             load_model, name, conf, probe_render):
+    tag = f"h5_{name}"
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(what):  # host seconds of each part of this model's run
+        now = time.perf_counter()
+        laps[what] = round(now - clock[0], 2)
+        clock[0] = now
+
+    args = trainer_mod.parse_args([
+        "--path", str(conf), "--resume", "none", "--prefix", "h5",
+        "--num_epochs", str(H5_EPOCHS), "--deterministic", "1", "--verbose_timing", "1"])
+    trainer = trainer_mod.ModelTrainer(args)  # device 'cuda', the default
+    lap("build")
+    dataset = trainer.train_loader.dataset
+    if type(dataset).__name__ != "Nav9Rooms" or len(trainer.val_loader) != 1:
+        fail(f"{tag}: dataset {type(dataset).__name__}, {len(trainer.val_loader)} val batches")
+    # the re-render alone, on the host: one batch of 16 windows, cold then warm
+    render_s = []
+    if probe_render:
+        probe = type(dataset)(dataset.data_dir, dict(trainer.hp), trainer.data_conf, "train")
+        for _ in range(2):
+            probe._rng = np.random.RandomState(0)
+            t0 = time.perf_counter()
+            for i in range(TRAIN_B):
+                probe[i]
+            render_s.append(time.perf_counter() - t0)
+        del probe
+        lap("render_probe")
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    steps, vals = [], []
+    real_step, real_val = trainer_mod.train_step, trainer.val
+
+    def counted_step(*a, **kw):
+        k1, k2 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES
+        metrics = real_step(*a, **kw)
+        steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2, metrics))
+        return metrics
+
+    trainer_mod.train_step = counted_step
+    trainer.val = lambda epoch: vals.append(real_val(epoch)) or vals[-1]
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    try:
+        trainer.run()
+    finally:
+        trainer_mod.train_step = real_step
+    torch.cuda.synchronize()
+    lap("train")
+    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    per_epoch = len(trainer.train_loader)
+    if per_epoch < 2 or len(steps) != H5_EPOCHS * per_epoch or len(vals) != H5_EPOCHS:
+        fail(f"{tag}: {len(steps)} steps and {len(vals)} val passes, expected "
+             f"{H5_EPOCHS} x {per_epoch} and {H5_EPOCHS}")
+    per_step = sorted({(a, b) for a, b, _ in steps})
+    if per_step != [(NORMS_PER_STEP, NORMS_PER_STEP)] or launches[2]:
+        fail(f"{tag}: K1/K2 launches per step {per_step}, K3 {launches[2]}; expected "
+             f"{(NORMS_PER_STEP, NORMS_PER_STEP)} and no K3")
+    for i, (_, _, m) in enumerate(steps):
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+        if bad or not bool(m["grads_finite"]):
+            fail(f"{tag}: non-finite {bad or 'gradients'} at step {i}")
+    if not all(np.isfinite(v) for val in vals for v in val.values()):
+        fail(f"{tag}: non-finite val losses {vals}")
+    unchanged = [n for n, p in trainer.model.named_parameters()
+                 if p.grad is not None and p.grad.abs().sum() > 0
+                 and torch.equal(p.detach(), before[n])]
+    if unchanged:
+        fail(f"{tag}: parameters with a gradient did not change: {unchanged}")
+    trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    lap("checks")
+    # device time of one step on a resident batch: the kernels the profiler
+    # records (device activity only, which keeps the trace of a step's
+    # ~10,000 launches quick to read)
+    from torch.profiler import ProfilerActivity, profile
+    batch = next(iter(trainer.train_loader))
+
+    def step_once():
+        real_step(trainer.model, trainer.optimizer, batch, trainer.step, trainer.generator)
+
+    step_once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_once()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 or None
+    lap("device_busy")
+    # per epoch: the trainer's wait for each batch against its synced steps
+    per = {k: [[round(t * 1e3, 2) for t in v[e * per_epoch:(e + 1) * per_epoch]]
+               for e in range(H5_EPOCHS)]
+           for k, v in (("t_data_ms", trainer.data_seconds), ("step_ms", trainer.step_seconds))}
+    sums = {k: [round(sum(e), 1) for e in v] for k, v in per.items()}
+    print(f"{tag}: {conf.name} from {H5_FILES} h5 files, {H5_EPOCHS} epochs of {per_epoch} "
+          f"steps at B={TRAIN_B} T={TRAIN_T} and a val pass each in {laps['train']:.2f} s; K1/K2 "
+          f"launches per step {per_step[0]}, total K1/K2/K3 {launches}")
+    print(f"{tag}: per step and epoch (cold, then warm render cache): " + json.dumps(per))
+    print(f"{tag}: sums per epoch, t_data {sums['t_data_ms']} ms against steps "
+          f"{sums['step_ms']} ms; median of steps 1-{len(steps) - 1} "
+          f"{statistics.median(trainer.step_seconds[1:]) * 1e3:.2f} ms; device busy per step "
+          f"{fmt(busy)} ms (torch.profiler, a resident batch)")
+    if render_s:
+        print(f"{tag}: re-render of {TRAIN_B} windows on the host (render + INTER_AREA), "
+              f"cold {render_s[0] * 1e3:.1f} ms, warm {render_s[1] * 1e3:.1f} ms")
+    print(f"{tag}: val " + json.dumps({k: float(f"{v:.6g}") for k, v in vals[-1].items()}))
+
+    def make_model(device):
+        model = load_model(conf, device=device)
+        model.load_state_dict(trained)
+        return model
+
+    train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag)
+    lap("vs_cpu")
+    print(f"{tag}: host seconds of each part: " + json.dumps(laps))
+    return launches
 
 
 def main():
@@ -1346,6 +1548,9 @@ def main():
     banned = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "video_gcp_tpu")]
     if banned:
         fail(f"JAX modules loaded: {banned}")
+    # the port reads and writes h5 files and resizes frames without h5py
+    # or OpenCV: stand-ins that fail on import keep it so
+    sys.modules["h5py"] = sys.modules["cv2"] = None
     set_float32_precision()
     start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1397,12 +1602,14 @@ def main():
     timed_phase("train_vs_cpu", train_vs_cpu, torch,
                 lambda d: load_model(CONF, weights=WEIGHTS, device=d), AttrDict,
                 distributions, DataLoader, trainer.train_loader.dataset, "train")
+    h5_launches = timed_phase("h5_train", h5_phase, torch, fused_gn, soft_dtw, trainer_mod,
+                              distributions, DataLoader, AttrDict, load_model)
 
     # from the port's initialisation: --resume latest finds no checkpoint
     shutil.rmtree(EXP_DIR / "prediction/9room/gcp_adaptive", ignore_errors=True)
     adaptive, (ad_k1, ad_k2, ad_k3) = timed_phase(
         "train_adaptive", train_phase, torch, fused_gn, soft_dtw, trainer_mod, ADAPTIVE_CONF,
-        "latest", k3_per_step=1)
+        "latest", k3_per_step=1, n_steps=ADAPTIVE_STEPS)
     trained = {k: v.detach().cpu() for k, v in adaptive.model.state_dict().items()}
 
     def adaptive_model(device):
@@ -1444,15 +1651,18 @@ def main():
         line("gn_lrelu_fwd", k1_rows, [CEM_BATCH * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:97",
              dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1,
-                  serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1, plan=plan_k1)),
+                  serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1, plan=plan_k1,
+                  **{f"h5_train_{n}": v[0] for n, v in h5_launches.items()})),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
              dict(serve=0, train=train_k2, train_adaptive=ad_k2, serve_bf16=0,
-                  train_bf16=train16_k2, eval=0, plan=0)),
+                  train_bf16=train16_k2, eval=0, plan=0,
+                  **{f"h5_train_{n}": v[1] for n, v in h5_launches.items()})),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
              dict(serve=0, train=0, train_adaptive=ad_k3, serve_bf16=0, train_bf16=0,
-                  eval=0, plan=0), source=soft_dtw.SOURCE),
+                  eval=0, plan=0, **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()}),
+             source=soft_dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")
     print(json.dumps({"kernel_path_sums": {"gn_lrelu_fwd": k1_sums, "gn_lrelu_bwd": k2_sums}}))

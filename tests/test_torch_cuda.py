@@ -535,3 +535,67 @@ def test_infer_action_on_card_matches_cpu(card):
     got = on_card._infer_action(img, target)
     assert fused_gn.LAUNCHES - launches == 5
     assert np.abs(got - on_cpu._infer_action(img, target)).max() < 1e-4
+
+
+@pytest.mark.parametrize("model", ["gcp_tree", "gcp_sequential"])
+def test_trainer_on_an_h5_dataset_on_card(card, model, tmp_path, monkeypatch):
+    """Two train steps of each model of the 9-room experiments, at a cut
+    width and horizon, from h5 files of the data generation's layout read
+    through the maze re-renderer: the profiler sees K1 and K2 at every norm
+    of each step, as many as the wrappers count, and the losses are
+    finite."""
+    import shutil
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_gcp_torch.data import h5
+    from video_gcp_torch.training.trainer import ModelTrainer, parse_args
+
+    repo = Path(__file__).resolve().parent.parent
+    rng = np.random.RandomState(0)
+    data = tmp_path / "data/nav_9rooms"
+    data.mkdir(parents=True)
+    for i in range(5):
+        path = np.clip(np.cumsum(rng.uniform(-0.02, 0.02, (12, 2)), 0)
+                       + rng.uniform(-0.4, 0.4, 2), -0.45, 0.45)
+        with h5.File(data / f"traj_{i}.h5", "w") as f:
+            f.create_dataset("traj_per_file", data=1)
+            f.create_dataset("traj0/images", data=np.zeros((12, 1, 32, 32, 3), np.uint8))
+            f.create_dataset("traj0/states", data=np.concatenate(
+                [path, np.zeros((12, 1)), np.tile(path[-1], (12, 1))], 1))
+            f.create_dataset("traj0/actions", data=rng.randn(11, 2) * 0.1)
+            f.create_dataset("traj0/pad_mask", data=np.ones(12))
+    conf = tmp_path / f"experiments/prediction/nav/{model}/conf.py"
+    shutil.copytree(repo / "experiments/prediction/base_configs",
+                    tmp_path / "experiments/prediction/base_configs")
+    conf.parent.mkdir(parents=True)
+    conf.write_text(
+        "from video_gcp_tpu.core.attrdict import AttrDict\n"
+        "from video_gcp_tpu.data.configs.nav_9rooms import config as nav\n"
+        f"from experiments.prediction.base_configs import {model} as b\n"
+        "configuration = AttrDict(b.configuration)\n"
+        "configuration.update(dict(dataset_name='nav_9rooms', batch_size=2, lr=1e-3))\n"
+        "data_config = AttrDict(nav)\n"
+        "data_config.dataset_spec = AttrDict(nav.dataset_spec, max_seq_len=8)\n"
+        "model_config = AttrDict(b.model_config)\n"
+        "model_config.update(dict(img_sz=16, nz_mid_lstm=16, nz_vae=4,\n"
+        "    regress_length=True, decoder_distribution='discrete_logistic_mixture'))\n"
+        "model_config.pop('add_weighted_pixel_copy')\n")
+    monkeypatch.setenv("GCP_DATA_DIR", str(tmp_path / "data"))
+    monkeypatch.setenv("GCP_EXP_DIR", str(tmp_path / "exp"))
+    trainer = ModelTrainer(parse_args(["--path", str(conf.parent), "--num_epochs", "1",
+                                       "--skip_first_val", "1"]))
+    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run()
+        torch.cuda.synchronize()
+    counted = (fused_gn.LAUNCHES - launches[0], fused_gn.BWD_LAUNCHES - launches[1])
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = tuple(sum(e.count for e in kernels if name in e.key)
+                 for name in ("gn_lrelu_fwd", "gn_lrelu_bwd"))
+    # 4 norms a conv pyramid at 16x16: 3 encoder calls and the decoder
+    assert trainer.step == 2, trainer.step
+    assert counted == (32, 32) and seen == counted, (counted, seen,
+                                                     [e.key for e in kernels][:40])

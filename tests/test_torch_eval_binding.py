@@ -2,7 +2,8 @@
 eval_binding.py) against the JAX package's `tree_dense_sample` on the same
 tree outputs, on the CPU: 'basic', 'dtw' and 'pruned_dtw' give the same
 frames exactly (they gather the same nodes); the schemes not ported raise
-NotImplementedError naming their ROADMAP item."""
+NotImplementedError naming their ROADMAP item. The sequential model's
+'basic' and 'dtw' against the JAX package's `sequential_dense_sample`."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,5 +75,20 @@ def test_deferred_schemes_raise(scheme):
 
 
 def test_sequential_dense_sample_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        t_eb.dense_sample(AttrDict(dense_rec=AttrDict()), AttrDict(), "basic", 10)
+    """The sequential model's dense sample: 'basic' and 'dtw' equal the
+    JAX package's; a tree-only scheme raises."""
+    _, _, traj, end = _case(0)
+    rollout = (np.random.RandomState(1).rand(*traj.shape) * 2 - 1).astype(np.float32)
+    t_out = AttrDict(dense_rec=AttrDict(images=torch.from_numpy(rollout)),
+                     end_ind=torch.from_numpy(end))
+    t_in = AttrDict(traj_seq=torch.from_numpy(traj), end_ind=torch.from_numpy(end))
+    j_out = JAttrDict(dense_rec=JAttrDict(images=jnp.asarray(rollout)),
+                      end_ind=jnp.asarray(end.astype(np.int32)))
+    j_in = JAttrDict(traj_seq=jnp.asarray(traj), end_ind=jnp.asarray(end.astype(np.int32)))
+    for scheme in ("basic", "dtw"):
+        got = t_eb.dense_sample(t_out, t_in, scheme, traj.shape[1]).numpy()
+        want = np.asarray(j_eb.dense_sample(j_out, j_in, scheme, traj.shape[1]))
+        np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, rollout)  # 'dtw' warped the frames
+    with pytest.raises(ValueError, match="for the sequential model"):
+        t_eb.dense_sample(t_out, t_in, "pruned_dtw", traj.shape[1])

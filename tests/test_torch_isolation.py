@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it loads the unchanged experiment configs,
 builds and loads the trained 9-room model and runs a forward pass without
-importing jax, flax or video_gcp_tpu; and its entry point runs on the card
-unless asked for the CPU."""
+importing jax, flax or video_gcp_tpu; its data modules, datasets and the
+sequential model also without h5py or cv2; and its entry point runs on the
+card unless asked for the CPU."""
 import os
 import subprocess
 import sys
@@ -129,3 +130,64 @@ def test_planning_workers_spread_over_the_cards(monkeypatch, gpu_id, ngpu, devic
     monkeypatch.setattr(torch.cuda, "device_count", lambda: devices)
     assert [worker_device("cuda", gpu_id, ngpu, i) for i in range(3)] == want
     assert worker_device("cpu", gpu_id, ngpu, 1) == "cpu"
+
+
+_DATA_SCRIPT = """
+import sys, tempfile
+from pathlib import Path
+import numpy as np
+import torch
+import video_gcp_torch.data
+from video_gcp_torch.core.attrdict import AttrDict
+from video_gcp_torch.data import h5
+from video_gcp_torch.data.configs import nav_25rooms, nav_25rooms_long
+from video_gcp_torch.data.configs.nav_9rooms import Nav9Rooms, config
+from video_gcp_torch.evaluation.eval_binding import dense_sample
+from video_gcp_torch.planning.infra.agent.general_agent import BenchmarkAgentLoadHDF5
+from video_gcp_torch.planning.infra.agent.savers import HDF5Saver
+from video_gcp_torch.training.config import build_hparams, load_config
+from video_gcp_torch.training.trainer import ModelTrainer
+
+d = Path(tempfile.mkdtemp())
+t = 12
+with h5.File(d / "traj_0.h5", "w") as f:
+    f.create_dataset("traj_per_file", data=1)
+    f.create_dataset("traj0/images", data=np.zeros((t, 1, 128, 128, 3), np.uint8))
+    f.create_dataset("traj0/states", data=np.tile(np.linspace(-0.3, 0.3, t)[:, None], (1, 5)))
+    f.create_dataset("traj0/actions", data=np.zeros((t - 1, 2)))
+    f.create_dataset("traj0/pad_mask", data=np.ones(t))
+conf = AttrDict(config, dataset_spec=AttrDict(config.dataset_spec, max_seq_len=t,
+                                              split=AttrDict(train=1.0, val=0.0, test=0.0)))
+ex = Nav9Rooms(str(d), dict(img_sz=32), conf, "train")[0]
+assert ex.traj_seq.shape == (t, 32, 32, 3) and ex.traj_seq.std() > 0.01
+
+bundle = load_config("experiments/prediction/9room/gcp_sequential")
+assert bundle.configuration["model"].__module__ == "video_gcp_torch.models.sequential"
+assert bundle.data_conf.dataset_spec.dataset_class is Nav9Rooms
+# its config at a cut width and horizon: the call proves what it imports
+hp = build_hparams(bundle).overwrite(dict(ngf=4, nz_mid_lstm=32, nz_mid=32, nz_enc=32,
+                                          n_lstm_layers=1, max_seq_len=t))
+model = bundle.configuration["model"](hp)
+rng = np.random.RandomState(0)
+inputs = AttrDict(I_0=torch.from_numpy(rng.randint(0, 256, (1, 32, 32, 3)).astype(np.uint8)),
+                  I_g=torch.from_numpy(rng.randint(0, 256, (1, 32, 32, 3)).astype(np.uint8)))
+with torch.inference_mode():
+    out = model(inputs, phase="plan", pred_length=True,
+                generator=torch.Generator().manual_seed(0))
+assert out.timeline_images.shape == (1, t, 32, 32, 3)
+assert torch.isfinite(out.timeline_images).all()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "video_gcp_tpu", "h5py", "cv2"))
+print("LOADED", loaded)
+"""
+
+
+def test_data_and_sequential_modules_import_no_jax_h5py_or_opencv():
+    """The h5 module, the datasets and their configs, the sequential model
+    (9room/gcp_sequential's config at a cut width, one plan call), the trainer and the
+    h5 benchmark agent load no jax, flax, video_gcp_tpu, h5py or cv2."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _DATA_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout

@@ -8,8 +8,9 @@
   `--val_sweep 1` validates every saved epoch, and `--metric 1` runs the
   top-of-100 Evaluator: results_<it>.txt, the four channel-first .npy dumps
   under the JAX Evaluator's names, and the eval records.
-- Without `--device` and without a GPU the trainer raises; a flag of a path
-  not ported yet (--dataset_val_sweep) raises NotImplementedError.
+- Without `--device` and without a GPU the trainer raises;
+  `--dataset_val_sweep` on a config without sweep specs raises; a named
+  dataset that is not on disk raises with how to generate it.
 - The config bundle, the checkpoint resolution, RandomVideoDataset and the
   loader's batches against the JAX package.
 """
@@ -26,7 +27,7 @@ import torch
 from video_gcp_torch.data import loader as t_loader
 from video_gcp_torch.data.datasets import RandomVideoDataset, resize_video
 from video_gcp_torch.training import checkpoint as t_ckpt
-from video_gcp_torch.training.config import build_hparams, load_config
+from video_gcp_torch.training.config import build_hparams, load_config, require_dataset
 from video_gcp_torch.training.trainer import ModelTrainer, parse_args
 from video_gcp_tpu.data.datasets import RandomVideoDataset as JRandomVideoDataset
 from video_gcp_tpu.training import checkpoint as j_ckpt
@@ -96,9 +97,21 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--dataset_val_sweep"])
 def test_trainer_flags_not_ported_raise(monkeypatch, tmp_path, flag):
+    """--dataset_val_sweep is ported (tests/test_torch_sequential.py runs
+    it); on a config without `dataset_sweep_specs` it raises."""
     monkeypatch.setenv("GCP_EXP_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-        ModelTrainer(parse_args([*FLAGS, flag, "4"]))
+    trainer = ModelTrainer(parse_args([*FLAGS, flag, "1"]))
+    with pytest.raises(ValueError, match="dataset_sweep_specs"):
+        trainer.run()
+
+
+def test_a_missing_dataset_raises_with_how_to_generate_it(monkeypatch, tmp_path):
+    monkeypatch.setenv("GCP_DATA_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=str(tmp_path / "nav_9rooms")) as err:
+        require_dataset("nav_9rooms")
+    assert "experiments/data_gen/nav_9rooms/mod_hyper.py" in str(err.value)
+    (tmp_path / "nav_9rooms").mkdir()
+    require_dataset("nav_9rooms")  # a directory on disk is used as it is
 
 
 def test_trainer_val_metrics_and_val_sweep(tmp_path):
@@ -191,10 +204,17 @@ def _attr(d):
 
 
 def test_resize_video_raises_when_a_resize_is_needed():
-    v = np.zeros((2, 8, 8, 3), np.uint8)
+    """A video at the size is returned as it is; one that needs resizing is
+    resized as cv2's INTER_AREA resizes it (tests/test_torch_datasets.py),
+    and a resize that OpenCV's area interpolation would mix (down along
+    one axis, up along the other) raises."""
+    v = np.random.RandomState(0).randint(0, 256, (2, 8, 8, 3)).astype(np.uint8)
     assert resize_video(v, (8, 8)) is v
-    with pytest.raises(NotImplementedError):
-        resize_video(v, (16, 16))
+    small = resize_video(v, (4, 4))
+    assert small.shape == (2, 4, 4, 3) and small.dtype == np.uint8
+    assert small[0, 0, 0, 0] == (v[0, :2, :2, 0].astype(int).sum() + 2) >> 2
+    with pytest.raises(ValueError, match="downscale along one axis"):
+        resize_video(v, (16, 4))
 
 
 @pytest.mark.parametrize("drop_last,n_repeat", [(True, 2), (False, 1)])

@@ -1,6 +1,6 @@
-"""Tree-to-timeline extraction (evaluation/eval_binding.py of the JAX
-package): dense [B, T, ...] predictions on the GT timeline from a tree
-output, batched on the device.
+"""Dense [B, T, ...] predictions on the GT timeline from a model's output
+(evaluation/eval_binding.py of the JAX package), batched on the device.
+For a tree:
 
 - 'basic': the balanced schedule's matched node per frame; frames no node
   matched repeat the previous one (BalancedEvalBinding,
@@ -12,7 +12,8 @@ output, batched on the device.
 
 'greedy_exist' and 'greedy_l2' are not ported (ROADMAP item 7.4): the
 reference's own dispatch does not reach them (tree_dense_rec.py:30-39).
-The sequential model's dense sample waits for that model (item 10).
+For the sequential model, 'basic' is the rollout as it is and 'dtw' warps
+its frames 1..end onto the GT timeline (sequential_dense_sample).
 """
 from __future__ import annotations
 
@@ -81,9 +82,23 @@ def tree_dense_sample(outputs: AttrDict, inputs: AttrDict, scheme: str,
     raise ValueError(f"unknown pruning scheme {scheme!r}")
 
 
+def sequential_dense_sample(outputs: AttrDict, inputs: AttrDict, scheme: str,
+                            max_seq_len: int) -> torch.Tensor:
+    """The VRNN's dense sample (SequentialRecModule.get_sample_with_len,
+    sequential.py:70-94): 'basic' returns the rollout; 'dtw' warps frames
+    1..end onto the GT timeline (frame 0 is the GT conditioning frame)."""
+    images = outputs.dense_rec.images  # [B, T, ...]
+    if scheme == "basic":
+        return images
+    if scheme == "dtw":
+        end_ind = outputs.get("end_ind", inputs.get("end_ind"))
+        warped = dtw_warp_sequence(images[:, 1:], inputs.traj_seq[:, 1:], end_ind - 1)[0]
+        return torch.cat([images[:, :1], warped], dim=1)
+    raise ValueError(f"unknown pruning scheme {scheme!r} for the sequential model")
+
+
 def dense_sample(outputs: AttrDict, inputs: AttrDict, scheme: str,
                  max_seq_len: int) -> torch.Tensor:
-    if "tree" not in outputs:
-        raise NotImplementedError(
-            "the sequential model's dense sample is not ported (ROADMAP item 10)")
-    return tree_dense_sample(outputs, inputs, scheme, max_seq_len)
+    if "tree" in outputs:
+        return tree_dense_sample(outputs, inputs, scheme, max_seq_len)
+    return sequential_dense_sample(outputs, inputs, scheme, max_seq_len)

@@ -61,7 +61,8 @@ class Evaluator:
 
     def _eval_sample(self, inputs: AttrDict, generator: torch.Generator):
         """One prior sample of the batch: (per-sequence metrics [B] each,
-        the dense prediction [B, T, ...], all nodes in df order)."""
+        the dense prediction [B, T, ...], a tree's nodes in df order or the
+        sequential model's rollout)."""
         with torch.inference_mode():
             out = self.model(AttrDict({k: inputs[k] for k in PRIOR_INPUTS if k in inputs}),
                              phase="test", mode="prior", generator=generator)
@@ -72,7 +73,8 @@ class Evaluator:
             denom = torch.clamp(valid.sum(1), min=1)
             m = AttrDict({name: (fn(gen, inputs.traj_seq) * valid).sum(1) / denom
                           for name, fn in (("mse", mse), ("psnr", psnr), ("ssim", ssim))})
-            return m, gen, breadthfirst2depthfirst(out.tree.images)
+            full = breadthfirst2depthfirst(out.tree.images) if "tree" in out else gen
+            return m, gen, full
 
     def eval(self, inputs, generator: torch.Generator) -> AttrDict:
         """The protocol on one batch; returns (and accumulates for the dumps)

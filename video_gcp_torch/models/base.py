@@ -94,6 +94,14 @@ class BaseGCPModel(nn.Module):
         return bool(self.hp["regress_actions"]
                     and self.hp.get("one_step_planner") != "sh_pred")
 
+    def apply_action_activation(self, actions: torch.Tensor) -> torch.Tensor:
+        act = self.hp.get("action_activation")
+        if act == "sigmoid":
+            return torch.sigmoid(actions)
+        if act == "tanh":
+            return torch.tanh(actions)
+        return actions
+
     @property
     def param_dtype(self) -> torch.dtype:
         return self.decoder.dense[0].weight.dtype

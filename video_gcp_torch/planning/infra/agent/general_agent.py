@@ -8,10 +8,9 @@ around an `ObsHistory` buffer object that owns all per-key preallocation and
 history views instead of an inline cache-dict loop.
 
 A copy of planning/infra/agent/general_agent.py of the JAX package: images
-are resized and PNGs read and written with `raster`, and pickles read with
-the port's unpickler. `BenchmarkAgentLoadHDF5` (start and goal from an h5
-file, resized bilinearly) waits for the h5 datasets (ROADMAP.md queue 1,
-item 14).
+are resized and PNGs read and written with `raster`, h5 files read with the
+port's HDF5 module (`data/h5.py`), and pickles read with the port's
+unpickler.
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ import numpy as np
 
 from video_gcp_torch.core.attrdict import load_pickle
 from video_gcp_torch.core.params import ParamDict
+from video_gcp_torch.data import h5
 from video_gcp_torch.planning.infra import raster
 from video_gcp_torch.planning.infra.policy.policy import get_policy_args
 
@@ -285,3 +285,34 @@ class BenchmarkAgent(GeneralAgent):
         obs_dict = dict(load_pickle(os.path.join(folder, "obs_dict.pkl")))
         self._goal = self.env.get_goal_from_obs(obs_dict)
         return self.env.get_reset_from_obs(obs_dict)
+
+
+class BenchmarkAgentLoadHDF5(BenchmarkAgent):
+    """Benchmark agent that takes its start and goal from an h5 trajectory
+    file (benchmarking_agent_load_hdf5.py:9-42): the start state is the first
+    frame's, the goal the last valid frame's, and the goal image that frame
+    resized bilinearly."""
+
+    def _load_raw_data(self, itr):
+        path = self._start_goal_confs
+        if not path.endswith(".h5"):
+            files = sorted(glob.glob(os.path.join(path, "**/*.h5"), recursive=True))
+            assert files, f"no h5 files under {path}"
+            path, itr = files[itr % len(files)], itr // len(files)
+        with h5.File(path, "r") as f:
+            key = f"traj{itr % int(f['traj_per_file'][()])}"
+            states = f[f"{key}/states"][()]
+            pad_mask = f[f"{key}/pad_mask"][()]
+            end = int(np.argmax(pad_mask * np.arange(len(pad_mask))))
+            images = f[f"{key}/images"][()] if f"{key}/images" in f else None
+
+        if images is not None:
+            h, w = self._hp.image_height, self._hp.image_width
+            goal_img = images[end].astype(np.float32) / 255.0
+            if goal_img.ndim == 3:
+                goal_img = goal_img[None]
+            self._goal_image = np.stack([raster.resize_linear(goal_img[c], w, h)
+                                         for c in range(goal_img.shape[0])])[None]
+            self._demo_images = None
+        self._goal = states[end, -2:] if states.shape[-1] > 3 else states[end, :2]
+        return np.concatenate([states[0][:2], [0.0], self._goal])

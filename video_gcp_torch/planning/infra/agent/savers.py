@@ -6,8 +6,8 @@ framework's dataset reader exactly (datasets.VarLenVideoDataset):
 `traj{i}/images,states,actions,pad_mask` + `traj_per_file`.
 
 A copy of planning/infra/agent/savers.py of the JAX package: PNGs are
-written with `raster.write_png`, and h5py is imported only where an h5 file
-is written (data generation; the control benchmark saves raw).
+written with `raster.write_png` and h5 files with the port's own HDF5
+module (`data/h5.py`), so data generation needs neither OpenCV nor h5py.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import pickle
 import numpy as np
 
 from video_gcp_torch.core.attrdict import AttrDict
+from video_gcp_torch.data import h5
 from video_gcp_torch.planning.infra import raster
 
 
@@ -105,14 +106,8 @@ class HDF5Saver:
         return d
 
     def _flush(self):
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError(
-                "HDF5Saver writes h5 files with h5py, which is not installed; "
-                "save with save_format=['raw'] instead") from e
         path = os.path.join(self._phase_dir(), f"traj_{self._file_cntr}.h5")
-        with h5py.File(path, "w") as f:
+        with h5.File(path, "w") as f:
             f.create_dataset("traj_per_file", data=len(self._buffer))
             for i, traj in enumerate(self._buffer):
                 for k, v in traj.items():

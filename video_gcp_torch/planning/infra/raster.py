@@ -20,7 +20,14 @@ and nothing more:
   order: a block mean for integer factors (in integers for 2x2 blocks of
   uint8, as OpenCV does), otherwise fractional pixel areas from the
   per-axis weight tables. Equal to OpenCV in uint8 (the only dtype the
-  paths resize); float32 block means may differ by 2 ulp.
+  paths resize); float32 block means may differ by 2 ulp. Upscaling
+  (uint8 only: the 9-room data generation stores 80x80 renders at
+  128x128) is OpenCV's INTER_AREA-as-linear, with its 11-bit fixed-point
+  weights and the rounding of its SIMD vertical pass.
+- `resize_linear`: `cv2.resize`'s default INTER_LINEAR on float32 images
+  (the h5 benchmark agent's goal image), with OpenCV's coordinate map,
+  its border clamping and its switch to INTER_AREA for an exact 2x
+  downscale.
 - `write_png` / `read_png`: 8-bit RGB PNG through zlib; reading takes
   every filter type.
 
@@ -274,7 +281,10 @@ def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
     if (h, w) == (height, width):
         return img.copy()
     if height > h or width > w:
-        raise ValueError("raster.resize_area only downscales")
+        if height < h or width < w:
+            raise ValueError("raster.resize_area: a downscale along one axis and an "
+                             "upscale along the other")
+        return _area_upscale_u8(img, width, height)
     if h % height == 0 and w % width == 0:  # integer factors: block means
         fy, fx = h // height, w // width
         if (fy, fx) == (2, 2) and img.dtype == np.uint8:  # OpenCV's integer path
@@ -297,6 +307,71 @@ def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
     for k in range(ysrc.shape[0]):
         out = out + yw[k][:, None, None] * rows[ysrc[k]]
     return _saturate(out, img.dtype).reshape((height, width) + img.shape[2:])
+
+
+_COEF_ONE = 1 << 11  # OpenCV's INTER_RESIZE_COEF_SCALE
+
+
+def _area_up_table(src: int, dst: int):
+    """OpenCV's INTER_AREA map for an upscale: source pixel d * src / dst
+    and the fraction past the destination pixel's end, as 11-bit weights."""
+    inv_scale = dst / src
+    scale = 1.0 / inv_scale
+    d = np.arange(dst)
+    s = np.floor(d * scale).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv_scale).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    f[s >= src - 1] = 0.0
+    s = np.minimum(s, src - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_ONE)).astype(np.int32)
+    w1 = np.rint(f * np.float32(_COEF_ONE)).astype(np.int32)
+    return s, np.minimum(s + 1, src - 1), w0, w1
+
+
+def _area_upscale_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    if img.dtype != np.uint8:
+        raise ValueError(f"raster.resize_area upscales uint8 images only, not {img.dtype}")
+    h, w = img.shape[:2]
+    x0, x1, a0, a1 = _area_up_table(w, width)
+    y0, y1, b0, b1 = _area_up_table(h, height)
+    src = img.reshape(h, w, -1).astype(np.int32)
+    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]  # exact
+
+    def mul_hi(r, b):  # the 16-bit SIMD product's high half of (r >> 4) * b
+        return (np.minimum(r >> 4, 32767) * b[:, None, None]) >> 16
+
+    out = mul_hi(rows[y0], b0) + mul_hi(rows[y1], b1)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8).reshape(
+        (height, width) + img.shape[2:])
+
+
+def _linear_table(src: int, dst: int):
+    """Source pixels and weights per destination pixel (OpenCV's
+    INTER_LINEAR map: (d + 0.5) * src / dst - 0.5, clamped at the borders)."""
+    f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    low, high = s < 0, s >= src - 1
+    f[low | high] = 0.0
+    s = np.clip(s, 0, src - 1)
+    return s, np.minimum(s + 1, src - 1), np.float32(1.0) - f, f
+
+
+def resize_linear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """`cv2.resize(img, (width, height))` (INTER_LINEAR) for an [H, W] or
+    [H, W, C] float32 image."""
+    img = np.asarray(img)
+    if img.dtype != np.float32:
+        raise ValueError(f"raster.resize_linear takes float32 images, not {img.dtype}")
+    h, w = img.shape[:2]
+    if (h, w) == (2 * height, 2 * width):  # OpenCV takes INTER_AREA here
+        return resize_area(img, width, height)
+    x0, x1, a0, a1 = _linear_table(w, width)
+    y0, y1, b0, b1 = _linear_table(h, height)
+    src = img.reshape(h, w, -1)
+    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+    out = rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None]
+    return out.reshape((height, width) + img.shape[2:])
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"

@@ -153,7 +153,9 @@ def datetime_str() -> str:
 
 
 def dataset_config(dataset_name: str) -> AttrDict:
-    """The port's bundled dataset config (dataset-spec numbers only)."""
+    """The port's bundled config of a dataset (data/configs/<name>.py: the
+    dataset class, its split and render parameters), empty for a dataset
+    without one."""
     module = f"{_PORT_PKG}.data.configs.{dataset_name}"
     try:
         return importlib.import_module(module).config
@@ -171,15 +173,21 @@ def _merge(data_conf: AttrDict, src) -> None:
             data_conf[key] = val
 
 
+def load_dataset_spec(data_dir) -> AttrDict:
+    """`dataset_spec.py` beside the data (gcp_builder.py:149-163), executed
+    through the config import hook: a spec that the JAX package's saver
+    wrote imports video_gcp_tpu's AttrDict."""
+    path = Path(data_dir) / "dataset_spec.py"
+    return AttrDict(_ConfigImporter(path.parent).exec_file(path, "dataset_spec").dataset_spec)
+
+
 def build_data_conf(dataset_name: str, override=None) -> AttrDict:
     """The dataset directory's dataset_spec.py, when there is one, merged
     with `override` (gcp_builder.py:158-170), which defaults to the port's
     bundled config of the dataset."""
     data_conf = AttrDict(dataset_spec=AttrDict())
-    spec_path = Path(get_dataset_path(dataset_name)) / "dataset_spec.py"
-    if spec_path.is_file():
-        spec = _ConfigImporter(spec_path.parent).exec_file(spec_path, "dataset_spec")
-        data_conf.dataset_spec = AttrDict(spec.dataset_spec)
+    if (Path(get_dataset_path(dataset_name)) / "dataset_spec.py").is_file():
+        data_conf.dataset_spec = load_dataset_spec(get_dataset_path(dataset_name))
     _merge(data_conf, dataset_config(dataset_name) if override is None else override)
     return data_conf
 
@@ -218,6 +226,22 @@ def load_config(conf_dir) -> AttrDict:
     return AttrDict(configuration=configuration, model_config=model_config,
                     data_conf=data_conf, conf_path=str(conf_dir),
                     exp_name=str(conf_dir.relative_to(root / "experiments")))
+
+
+def require_dataset(dataset_name: str) -> None:
+    """Check that a named dataset's directory exists (the reference's
+    download_data, utils.py:79-93, without its download: the port runs
+    where there is no network). The data is made by the port's PRM expert
+    from the dataset's data_gen config."""
+    path = get_dataset_path(dataset_name)
+    if os.path.exists(path):
+        return
+    raise FileNotFoundError(
+        f"dataset {dataset_name!r} not found at {path}. Generate it into $GCP_DATA_DIR "
+        f"with the port's PRM expert: python -m video_gcp_torch.planning.run "
+        f"experiments/data_gen/{dataset_name}/mod_hyper.py (from a copy of the config, "
+        f"with --start_idx/--end_idx for the number of files), or unpack the published "
+        f"{dataset_name}.zip there")
 
 
 def build_hparams(bundle: AttrDict) -> ParamDict:

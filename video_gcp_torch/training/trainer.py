@@ -5,7 +5,8 @@ package).
     python -m video_gcp_torch.training.train --path <conf_dir>
         [--resume latest|<epoch>|<dir>|<weights.npz>] [--num_epochs N]
         [--feed_random_data 1] [--deterministic 1] [--device cuda|cpu]
-        [--metric 1] [--val_sweep 1] [--val_metric_batches N]
+        [--metric 1] [--val_sweep 1] [--dataset_val_sweep 1]
+        [--val_metric_batches N] [--val_data_size N]
 
 Runs on the card unless `--device cpu` is given; without a GPU it raises.
 Per step: `parallel.train_step.train_step` (forward in phase 'train' /
@@ -14,18 +15,27 @@ through K1+K2 on the card, finite mask, RAdam). Without trained weights
 (9room/gcp_adaptive), `--resume latest` finds no checkpoint and training
 starts from the port's initialisation.
 
+A config that names a dataset trains on the h5 files under
+$GCP_DATA_DIR/<dataset_name> through the dataset's configured class (the
+9-room maze's re-renderer for nav_9rooms); `--feed_random_data 1` and a
+config without a dataset take the synthetic RandomVideoDataset.
+
 Validation computes the loss values with the train-mode posterior
 (train.py:211-215) and, on the first `--val_metric_batches` batches, PSNR,
-SSIM and MSE of one prior sample warped onto the GT timeline by DTW.
+SSIM and MSE of one prior sample (a tree's warped onto the GT timeline by
+DTW).
 `--metric 1` runs the Evaluator (top-of-100 with the configuration's
 `metric_pruning_scheme`) over the val set instead of training;
-`--val_sweep 1` validates every saved epoch. The trainer's image logging
-waits for the rest of the visualizations (ROADMAP item 13), and the h5
-datasets and `--dataset_val_sweep` for item 14.
+`--val_sweep 1` validates every saved epoch; `--dataset_val_sweep 1`
+validates the current weights on each dataset of the configuration's
+`dataset_sweep_specs`, at its own horizon. The trainer's image logging,
+the datasets' `render_trajectory` among it, waits for the rest of the
+visualizations (ROADMAP item 13).
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import re
 import statistics
@@ -37,7 +47,7 @@ import torch
 
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.metrics import mse, psnr, ssim, to_float_images
-from video_gcp_torch.data.datasets import RandomVideoDataset
+from video_gcp_torch.data.datasets import GlobalSplitVarLenVideoDataset, RandomVideoDataset
 from video_gcp_torch.data.loader import DataLoader
 from video_gcp_torch.evaluation.eval_binding import dense_sample
 from video_gcp_torch.evaluation.eval_logger import TBEvalLogger
@@ -46,10 +56,13 @@ from video_gcp_torch.load import set_float32_precision
 from video_gcp_torch.parallel.train_step import make_optimizer, make_val_step, train_step
 from video_gcp_torch.training import checkpoint as ckpt
 from video_gcp_torch.training.config import (
+    build_data_conf,
     build_hparams,
     datetime_str,
+    get_dataset_path,
     get_exp_dir,
     load_config,
+    require_dataset,
 )
 from video_gcp_torch.training.logger import Logger
 
@@ -79,12 +92,14 @@ def parse_args(argv=None):
     p.add_argument("--val_sweep", default=0, type=int)
     p.add_argument("--dataset_val_sweep", default=0, type=int)
     p.add_argument("--deterministic", default=0, type=int)
+    p.add_argument("--val_data_size", default=-1, type=int)
     p.add_argument("--log_outputs_interval", default=10, type=int)
     p.add_argument("--skip_first_val", default=0, type=int)
     p.add_argument("--feed_random_data", default=0, type=int)
     p.add_argument("--verbose_timing", default=0, type=int,
                    help="synchronize the device after every step and record "
-                        "its wall time (ModelTrainer.step_seconds)")
+                        "its wall time and the wait for its batch "
+                        "(ModelTrainer.step_seconds, data_seconds)")
     p.add_argument("--val_metric_batches", default=4, type=int,
                    help="val batches for the quick per-epoch PSNR/SSIM/MSE of "
                         "one prior sample (the whole val split when it has "
@@ -103,9 +118,6 @@ def parse_args(argv=None):
 class ModelTrainer:
     def __init__(self, args):
         self.args = args
-        if args.dataset_val_sweep:
-            raise NotImplementedError(
-                "--dataset_val_sweep is not ported yet; ROADMAP queue 1, item 14")
         self.device = torch.device(args.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ModelTrainer: no CUDA device; pass --device cpu "
@@ -143,6 +155,7 @@ class ModelTrainer:
             0 if args.deterministic else int(time.time()))
         self.step = 0
         self.step_seconds = []  # per step, with --verbose_timing
+        self.data_seconds = []  # the wait for each step's batch, likewise
 
         self.start_epoch = 0
         path = ckpt.resolve_resume(args.resume, self.exp_path)
@@ -158,28 +171,41 @@ class ModelTrainer:
                     self.start_epoch = int(m.group(1)) + 1
 
     def _build_loaders(self):
-        if not (self.args.feed_random_data or self.conf.get("dataset_name") is None):
-            raise NotImplementedError(
-                "the h5 datasets are not ported yet (the published data is not in "
-                "the repository); pass --feed_random_data 1")
+        dataset_name = self.conf.get("dataset_name")
         mpar = dict(self.hp)
-        train_set = RandomVideoDataset(None, mpar, self.data_conf, "train",
-                                       dataset_size=256)
-        val_set = RandomVideoDataset(None, mpar, self.data_conf, "val",
-                                     dataset_size=32)
-        bs = self.conf["batch_size"]
+        if self.args.feed_random_data or dataset_name is None:
+            train_set = RandomVideoDataset(None, mpar, self.data_conf, "train",
+                                           dataset_size=256)
+            val_set = RandomVideoDataset(None, mpar, self.data_conf, "val",
+                                         dataset_size=32)
+        else:
+            require_dataset(dataset_name)
+            data_dir = get_dataset_path(dataset_name)
+            dset_cls = self._dataset_class()
+            train_set = dset_cls(data_dir, mpar, self.data_conf, "train")
+            val_set = dset_cls(data_dir, mpar, self.data_conf, "val", shuffle=False,
+                               dataset_size=self.args.val_data_size)
+        train_loader = self._loader(train_set, shuffle=True,
+                                    n_repeat=self.conf["epoch_cycles_train"])
+        # drop_last=False: the published splits leave val sets smaller than
+        # one batch (0.006 of the files)
+        val_loader = self._loader(val_set, shuffle=False, drop_last=False)
+        return train_loader, val_loader
+
+    def _loader(self, dataset, **kw):
         # one assembling thread by default: the step's Python thread issues
         # thousands of small launches, and more loader threads take the
         # interpreter from it (9room/gcp_tree on an H100 host with 8 cores:
         # 211 ms per step with 1 thread, 558 ms with 8; PERF.md)
         n_workers = int(os.environ.get("GCP_N_DATA_WORKERS", "1"))
-        train_loader = DataLoader(train_set, bs, shuffle=True,
-                                  n_repeat=self.conf["epoch_cycles_train"],
-                                  num_workers=n_workers, device=self.device)
-        # drop_last=False: a val split may be smaller than one batch
-        val_loader = DataLoader(val_set, bs, shuffle=False, drop_last=False,
-                                num_workers=n_workers, device=self.device)
-        return train_loader, val_loader
+        return DataLoader(dataset, self.conf["batch_size"], num_workers=n_workers,
+                          device=self.device, **kw)
+
+    def _dataset_class(self):
+        spec_cls = self.data_conf.dataset_spec.get("dataset_class")
+        if spec_cls is not None and not isinstance(spec_cls, str):
+            return spec_cls
+        return GlobalSplitVarLenVideoDataset
 
     def run(self):
         args = self.args
@@ -192,6 +218,9 @@ class ModelTrainer:
                                         ckpt.ckpt_name(epoch))
                     self.step = ckpt.load_checkpoint(path, self.model, self.optimizer)
                     self.val(epoch)
+                return
+            if args.dataset_val_sweep:
+                self.run_dataset_val_sweep()
                 return
             if args.metric:
                 self.run_metric_eval()
@@ -211,6 +240,57 @@ class ModelTrainer:
                     self.val(epoch)
         finally:
             self.logger.close()
+
+    def run_dataset_val_sweep(self):
+        """Validate the current weights on each dataset of
+        `dataset_sweep_specs` at its horizon, with hierarchy_levels =
+        ceil(log2(max_seq_len)) for a tree (train.py:71-99; JAX
+        trainer.py:285-370). The levels must be tied, so that the parameters
+        do not depend on the depth. The model is rebuilt per horizon and
+        takes every current parameter of the same shape; horizon-dependent
+        ones (the length predictor's max_seq_len-wide head) keep their
+        initialisation and are reported. Each dataset is read through its
+        own config (data/configs/<name>.py and its dataset_spec.py)."""
+        sweeps = self.conf.get("dataset_sweep_specs", [])
+        if not sweeps:
+            raise ValueError("set configuration['dataset_sweep_specs'] for the sweep")
+        if self.hp.get("untied_layers", False):
+            raise ValueError("the dataset sweep changes the tree's depth: it needs "
+                             "tied layers")
+        model, val_loader, val_step = self.model, self.val_loader, self.val_step
+        current = {k: v.detach() for k, v in model.state_dict().items()}
+        try:
+            for spec in sweeps:
+                hp = dict(self.hp, max_seq_len=spec["max_seq_len"])
+                if self.hp.get("hierarchy_levels", 0) > 0:
+                    hp["hierarchy_levels"] = int(math.ceil(math.log2(spec["max_seq_len"])))
+                data_conf = build_data_conf(spec["dataset_name"])
+                data_conf.dataset_spec.max_seq_len = spec["max_seq_len"]
+                dset_cls = data_conf.dataset_spec.get("dataset_class")
+                if dset_cls is None or isinstance(dset_cls, str):
+                    dset_cls = self._dataset_class()
+                val_set = dset_cls(get_dataset_path(spec["dataset_name"]), hp, data_conf,
+                                   "val", shuffle=False, dataset_size=self.args.val_data_size)
+                # drop_last=False: a val split of fewer examples than a
+                # batch is still validated
+                loader = self._loader(val_set, shuffle=False, drop_last=False)
+                if len(loader) == 0:
+                    raise RuntimeError(f"dataset sweep {spec['dataset_name']}: empty val loader")
+                swept = type(model)(hp).to(self.device, memory_format=torch.channels_last)
+                fresh = swept.state_dict()
+                skipped = sorted(k for k, v in fresh.items()
+                                 if k not in current or current[k].shape != v.shape)
+                swept.load_state_dict({k: fresh[k] if k in skipped else current[k]
+                                       for k in fresh}, strict=True)
+                if skipped:
+                    print(f"[dataset sweep] horizon-dependent params kept fresh: {skipped}")
+                self.model, self.val_loader = swept, loader
+                self.val_step = make_val_step(swept)
+                print(f"[dataset sweep] {spec['dataset_name']} "
+                      f"(T={spec['max_seq_len']}, L={hp.get('hierarchy_levels')})", flush=True)
+                self.val(0)
+        finally:
+            self.model, self.val_loader, self.val_step = model, val_loader, val_step
 
     def run_metric_eval(self):
         """The top-of-100 evaluation on the val set (--metric 1; JAX
@@ -248,6 +328,7 @@ class ModelTrainer:
             if self.args.verbose_timing:
                 self._sync()
                 self.step_seconds.append(time.time() - t1)
+                self.data_seconds.append(t1 - t0)
             if i % self.args.log_outputs_interval == 0:
                 metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
                 self.logger.log_scalar_dict(
@@ -297,15 +378,15 @@ class ModelTrainer:
     def _quick_image_metrics(self, batch, acc):
         """PSNR, SSIM and MSE of one prior sample on one val batch, averaged
         over the padded frames without the first/last crop (JAX
-        trainer.py:488-516). The sample's image logging (_log_val_images)
-        waits for ROADMAP item 13."""
+        trainer.py:488-516): a tree's nodes warped onto the GT timeline by
+        DTW, the sequential model's rollout as it is. The sample's image
+        logging (_log_val_images) waits for ROADMAP item 13."""
         batch = AttrDict(batch)
         batch.traj_seq = to_float_images(batch.traj_seq)
         out = self.model(AttrDict({k: batch[k] for k in PRIOR_INPUTS if k in batch}),
                          phase="test", mode="prior", generator=self.generator)
-        # the df-ordered nodes warped onto the GT timeline by DTW (JAX
-        # trainer.py:616-628)
-        pred = dense_sample(out, batch, "dtw", self.hp["max_seq_len"])
+        pred = dense_sample(out, batch, "dtw" if "tree" in out else "basic",
+                            self.model.hp["max_seq_len"])
         mask = batch.pad_mask
         denom = mask.sum()
         for name, fn in (("psnr", psnr), ("ssim", ssim), ("mse", mse)):
