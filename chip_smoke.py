@@ -15,12 +15,15 @@ Run from the root of the repository, with no arguments:
    GroupNorm site of the 9-room GCP-tree (5 encoder, 5 decoder) at batch 16
    and at the CEM batch of 100 candidates, the train step's encoder on its
    1,600 frames, in f32 and bf16, 9room/gcp_sequential's decoder on its
-   1,584 frames (16 x 99) in f32, plus the largest shape of the repo,
-   [16352, 64, 64, 16] bf16. Prints per shape the kernel's time (CUDA
-   events, median of 25), its own device time (torch.profiler, 10 calls),
-   the plain twin's time, the time of F.group_norm + F.leaky_relu (a
-   yardstick the port never calls), the bound, the wrapper's host time per
-   call (best of 3 x 50 calls issued back to back) and the max difference; then, per
+   1,584 frames (16 x 99) in f32, VMPC's simulator call (encoder on 50
+   candidates, decoder on 50 x 99 frames), plus the largest shape of the
+   repo, [16352, 64, 64, 16] bf16. Prints per shape the kernel's time (CUDA
+   events, median of 25), its own device time (torch.profiler, 10 calls,
+   one profiler session over every shape, as in the K2 phase),
+   the bound, the wrapper's host time per call (best of 3 x 50 calls issued
+   back to back) and the max difference, and at each path's top shape
+   (K1_COMPARED) the plain twin's time and the time of F.group_norm +
+   F.leaky_relu (a yardstick the port never calls); then, per
    path, the sums of the times and bounds over a plan call's, a B=16
    rollout's and a train step's K1 sites, in f32 and in bf16, and over
    gcp_sequential's train step in f32.
@@ -61,9 +64,10 @@ Run from the root of the repository, with no arguments:
    gradients, and that every parameter with a gradient changed; prints the
    warm ms per step (median of steps 3-31), training frames/s, the peak
    device memory and BWD_DY_COPIES. Then one step of ep74 on the first 2
-   examples of the first batch, with the same injected noise, on the card
-   and on the CPU: every loss term and every gradient agree within the
-   tolerances of tests/test_torch_train.py.
+   examples of the first batch, with the same injected noise and the
+   card's LeakyReLU branches (SharedSigns), on the card and on the CPU:
+   every loss term and every gradient agree within the tolerances of
+   tests/test_torch_train.py.
 7. Adaptive train phase: the trainer on the card, as `python -m
    video_gcp_torch.training.train --path
    experiments/prediction/9room/gcp_adaptive --feed_random_data 1
@@ -99,9 +103,10 @@ Run from the root of the repository, with no arguments:
    batch, decoded frames/s (top_of x B x 127 nodes / s) and the DTW warp's
    ms at [16, 127, 100].
 10. Plan phase: closed-loop visual planning on 9room/gcp_tree with ep74 on
-   the card. ep74 is written as a port checkpoint under the build
-   directory, the port's PRM expert writes start/goal configurations 0-1
-   (experiments/data_gen/nav_9rooms_start_goal, on the CPU), and
+   the card. ep74 as a port checkpoint under the build directory and the
+   start/goal configurations 0-1 of the port's PRM expert
+   (experiments/data_gen/nav_9rooms_start_goal, on the CPU) are made once,
+   by the first of the baselines and plan phases, and
    planning.run's ControlManager runs the control benchmark's tasks 0-1
    (experiments/control/9room/gcp_tree, T=200 env steps each) from copies
    of both configs under the build directory. Checks 15 K1 launches per
@@ -136,6 +141,33 @@ Run from the root of the repository, with no arguments:
    re-render of one batch on the host, cold and warm. The run imports neither h5py nor cv2: both are set to None in
    sys.modules.
 
+12. Baselines phase (right after the h5 phase, from its files): the paper's
+   planning baselines in the 9-room maze at the published 9-room widths,
+   each a smoke run of one control task (T=200) through planning.run's
+   ControlManager. (a) The flat CEM ablation, the published
+   experiments/control/9room/gcp_sequential with ep74 (the tree's 127
+   latents as flat Gaussians, one call of 5 candidates and the elites'
+   re-rollout a _plan): 15 K1 a simulator call and 5 a closed-loop action,
+   the first simulator call card vs CPU (TOLS_SLICE). (b) VMPC:
+   9room/gcp_sequential with base_configs/vmpc.py's overrides, trained
+   through ModelTrainer from its initialisation for one epoch (4 steps)
+   and a val pass: 20 K1 and 15 K2 a step (its encoding of the sequence
+   reaches no loss), a KL of 0 at every step, one
+   step card vs CPU (TOLS_TRAIN); then ImageCEMPolicy(act_cond=True,
+   model_cls=SequentialModel) with ImageCEMPlanner and the default
+   FlatCEMSampler over [100, 2] action sequences (3 iterations of 50, a
+   replan every 50 env steps) scored by ep74's learned cost: 15 K1 a
+   simulator call, the first one (its first 10 sequences) card vs CPU.
+   (c) Goal-conditioned BC
+   (reactive) trained likewise: 10 K1 and 10 K2 a step, one step card vs
+   CPU; then BehavioralCloningPolicy on those weights: 10 K1 an action,
+   the first one card vs CPU. (d) One B=16, T=100 prior rollout of
+   9room/gcp_sequential with use_conv_lstm from the port's
+   initialisation, injected z: 15 K1, card vs CPU at B=2. Prints each
+   part's seconds, launches and card-vs-CPU differences, ms per _plan,
+   candidates per simulator call, env steps/s and the (meaningless)
+   success rate of each task.
+
 Prints the seconds of each phase, the per-path sums and the kernels' JSON
 lines, the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero with no result line, as does
@@ -152,6 +184,7 @@ and Bk equal the parent's DP values bit for bit and w is within 1e-6 of the
 parent's. --kernels-only stops after those phases and prints their rows as
 JSON.
 """
+import functools
 import json
 import os
 import shutil
@@ -218,6 +251,10 @@ BF16_WARM = CEM_ITERS  # warm serving calls of each model
 BF16_MOVE_GRAD = 1e-6  # a bf16 step's gradient at least this large moves its parameter
 TOL_EVAL_METRIC = 1e-4  # tests/test_torch_evaluator.py, relative to max(1, |value|)
 EXP_DIR = ROOT / "video_gcp_torch/_build/chip_smoke_exp"  # git-ignored
+# the seed of every np.random stream of the control runs and the data
+# generation (planning.run --seed): each run of the script makes the same
+# data and plans alike
+SEED = 0
 # the control path's model calls (experiments/control/9room/gcp_tree): the
 # simulator's candidates per call (sampling_rates_per_layer [10, 10], then
 # n_ll_samples 5, then the chosen one) and one frame per closed-loop action
@@ -226,6 +263,29 @@ CONTROL = "experiments/control/9room/gcp_tree/mod_hyper.py"
 DATA_GEN = "experiments/data_gen/nav_9rooms_start_goal/mod_hyper.py"
 CONTROL_TASKS = 2  # 2 of the benchmark's 100 tasks: the script's time
 K1_PER_SIM_CALL, K1_PER_ACTION = 15, 5  # 5 encoder sites x 2 + 5 decoder; 5
+# the baselines phase (the paper's planning baselines in the 9-room maze):
+# the flat CEM ablation (control/9room/gcp_sequential: ep74, 2^7 - 1 tree
+# latents as flat Gaussians, 5 candidates), VMPC (9room/gcp_sequential with
+# base_configs/vmpc.py's overrides, CEM over action sequences) and
+# goal-conditioned BC, one control task each; the models trained 4 steps
+FLAT_CONTROL = "experiments/control/9room/gcp_sequential/mod_hyper.py"
+SEQ_CONF = ROOT / "experiments/prediction/9room/gcp_sequential"
+BASELINE_TASKS = 1
+VMPC_CANDIDATES, VMPC_ITERS, VMPC_REPLAN = 50, 3, 50  # CEM batch, iterations, env steps
+BC_NORMS_PER_STEP = K1_PER_BC_ACTION = 10  # the sequence (or I_0) and I_g, no decoder
+# a VMPC train step's K2: its encoding of the sequence reaches no loss (the
+# posterior head is zero-width, nz_vae = 0, and the auxiliary models read it
+# detached), so only I_0's and I_g's 5 + 5 and the decoder's 5 norms get a
+# gradient; its forward runs all 20 K1
+VMPC_PER_STEP = (NORMS_PER_STEP, 15, 0)
+CONV_LSTM_B = 2  # the ConvLSTM forward held card vs CPU
+# the top shape of each path, where the K1 phase also times the plain twin
+# and the library call (the rows PERF.md's kernel table cites): the plan
+# call, the B=16 rollout, bench.py's bf16 decode, the control path,
+# gcp_sequential's training and VMPC's simulator call
+K1_COMPARED = [((n, 32, 32, 16), "float32") for n in (
+    CEM_BATCH * N_NODES, ROLLOUT_BATCH * N_NODES, CONTROL_CANDIDATES[0] * N_NODES,
+    SEQ_DEC_BATCH, VMPC_CANDIDATES * (TRAIN_T - 1))] + [((32 * 511, 64, 64, 16), "bfloat16")]
 TOL_ACTION = 1e-4  # one closed-loop action, card vs CPU (tests/test_torch_planning.py)
 # the h5 phase: nav_9rooms from the PRM expert (T=100, 128x128 frames, one
 # trajectory a file); the global split 0.994 / 0.006 keeps 39 of 40 files
@@ -281,6 +341,30 @@ def device_ms(torch, fn, tags, reps=10, tries=3):
         if us > 0:
             return us / reps / 1e3
     return None
+
+
+def device_ms_each(torch, calls, n_cases, tags, reps=10, tries=3):
+    """Each case's kernel device time per call, from one torch.profiler
+    session over all the cases (a session per case took most of the K1
+    phase's time): `calls()` yields each case's call, made
+    anew from the phase's seed; it runs once to warm up, then `reps` times,
+    and the kernels whose name holds one of `tags` (one a call) are split
+    in launch order. Nones when a trace lost kernels `tries` times over."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls():
+                for _ in range(reps + 1):
+                    fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and any(t in e.name for t in tags)),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) == n_cases * (reps + 1):
+            return [sum(e.time_range.elapsed_us() for e in kernels[i + 1:i + reps + 1])
+                    / reps / 1e3 for i in range(0, len(kernels), reps + 1)]
+    return [None] * n_cases
 
 
 def kernels_per_call(torch, fn, reps=5):
@@ -401,16 +485,31 @@ def kernel_phase(torch, F, fused_gn, parent=None):
     for n in CONTROL_CANDIDATES:  # the control path's simulator calls and actions
         cases += [((n,) + s, "float32") for s in ENC_SITES]
         cases += [((n * N_NODES,) + s, "float32") for s in DEC_SITES]
+    # VMPC's simulator call: the encoder on its candidates, the decoder on
+    # their T - 1 frames each
+    cases += [((VMPC_CANDIDATES,) + s, "float32") for s in ENC_SITES]
+    cases += [((VMPC_CANDIDATES * (TRAIN_T - 1),) + s, "float32") for s in DEC_SITES]
+    groups = 8
+
+    def inputs(gen, shape, dtype):
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(getattr(torch, dtype))
+        scale = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
+        return x, scale, torch.randn(c, generator=gen, device="cuda") * 0.1
+
+    def calls():  # the same inputs again, for the device times
+        gen = torch.Generator("cuda").manual_seed(0)
+        for shape, dtype in cases:
+            x, scale, bias = inputs(gen, shape, dtype)
+            yield lambda: fused_gn.fused_group_norm_lrelu(x, scale, bias, groups)
+
     gen = torch.Generator("cuda").manual_seed(0)
+    part_s = dict(check=0.0, events=0.0, host=0.0, compared=0.0, free=0.0)  # seconds
     rows = []
-    print("K1 gn_lrelu_fwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
-          "host_us | max_abs_err" + (" | parent: ms device_ms host_us" if parent else ""))
     for shape, dtype in cases:
         dt = getattr(torch, dtype)
-        c, groups = shape[-1], 8
-        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dt)
-        scale = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
-        bias = torch.randn(c, generator=gen, device="cuda") * 0.1
+        t0 = time.perf_counter()
+        x, scale, bias = inputs(gen, shape, dtype)
         got = fused_gn.fused_group_norm_lrelu(x, scale, bias, groups)
         want = fused_gn.gn_lrelu_reference(x, scale, bias, groups)
         torch.cuda.synchronize()
@@ -426,31 +525,51 @@ def kernel_phase(torch, F, fused_gn, parent=None):
         x_nchw = x.permute(0, 3, 1, 2)  # the same memory, channels_last
         run = lambda: fused_gn.fused_group_norm_lrelu(x, scale, bias, groups)  # noqa: E731
         row = dict(shape=list(shape), dtype=dtype)
+        t1 = time.perf_counter()
         if parent:
             old = lambda: parent.fused_group_norm_lrelu(x, scale, bias, groups)  # noqa: E731
             row["ms"], row["parent_ms"] = in_turns(torch, run, old)
             row["parent_device_ms"] = device_ms(torch, old, K1_TAGS)
             row["parent_host_us"] = host_us(torch, old)
+            row["device_ms"] = device_ms(torch, run, K1_TAGS)
         else:
             row["ms"] = time_ms(torch, run)
-        row["device_ms"] = device_ms(torch, run, K1_TAGS)
+        t2 = time.perf_counter()
         row["host_us"] = host_us(torch, run)
-        row["plain_ms"] = time_ms(torch, lambda: fused_gn.gn_lrelu_reference(
-            x, scale, bias, groups))
-        row["library_ms"] = time_ms(torch, lambda: F.leaky_relu(
-            F.group_norm(x_nchw, groups, scale.to(dt), bias.to(dt), eps=1e-6), 0.2))
+        t3 = time.perf_counter()
+        row["plain_ms"] = row["library_ms"] = None
+        if (shape, dtype) in K1_COMPARED:
+            row["plain_ms"] = time_ms(torch, lambda: fused_gn.gn_lrelu_reference(
+                x, scale, bias, groups))
+            row["library_ms"] = time_ms(torch, lambda: F.leaky_relu(
+                F.group_norm(x_nchw, groups, scale.to(dt), bias.to(dt), eps=1e-6), 0.2))
+        t4 = time.perf_counter()
         row["bound_ms"], row["bound_by"] = bound(shape, x.element_size())
         row["max_abs_err"] = max_err
         rows.append(row)
-        print(f"K1 {list(shape)} {dtype} | {row['ms']:.4f} {fmt(row['device_ms'])} "
-              f"{row['plain_ms']:.4f} {row['library_ms']:.4f} {row['bound_ms']:.4f} | "
-              f"{row['host_us']:.1f} | {max_err:.3e}"
-              + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
-                 f"{row['parent_host_us']:.1f}" if parent else ""))
         del x, x_nchw
         torch.cuda.empty_cache()
+        for part, (a, b) in dict(check=(t0, t1), events=(t1, t2), host=(t2, t3),
+                                 compared=(t3, t4), free=(t4, time.perf_counter())).items():
+            part_s[part] += b - a
+    if not parent:
+        t0 = time.perf_counter()
+        for row, ms in zip(rows, device_ms_each(torch, calls, len(cases), K1_TAGS)):
+            row["device_ms"] = ms
+        part_s["profiler"] = time.perf_counter() - t0
+    print("K1 gn_lrelu_fwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
+          "host_us | max_abs_err" + (" | parent: ms device_ms host_us" if parent else ""))
+    for row in rows:
+        print(f"K1 {row['shape']} {row['dtype']} | {row['ms']:.4f} {fmt(row['device_ms'])} "
+              f"{fmt(row['plain_ms'])} {fmt(row['library_ms'])} {row['bound_ms']:.4f} | "
+              f"{row['host_us']:.1f} | {row['max_abs_err']:.3e}"
+              + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
+                 f"{row['parent_host_us']:.1f}" if parent else ""))
     sums = path_sums("K1", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
                      ("plan_call", "rollout", "train_step", "train_step_sequential"))
+    print(f"K1: {len(rows)} shapes checked against the twin and timed, the twin and "
+          f"F.group_norm at the {len(K1_COMPARED)} top shapes only; seconds by part "
+          + json.dumps({k: round(v, 2) for k, v in part_s.items()}))
     return rows, sums
 
 
@@ -465,19 +584,27 @@ def bwd_bound(shape, itemsize):
 
 def k2_phase(torch, F, fused_gn, parent=None):
     """K2 against its twin, and its times, at the training shapes."""
-    gen = torch.Generator("cuda").manual_seed(1)
-    rows = []
-    print("K2 gn_lrelu_bwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
-          "host_us | max err dx dscale dbias (relative to max(1, |ref|))"
-          + (" | parent: ms device_ms host_us" if parent else ""))
-    for shape, dtype in K2_SHAPES:
-        dt = getattr(torch, dtype)
-        c, groups = shape[-1], 8
+    groups = 8
+
+    def inputs(gen, shape, dtype):
+        dt, c = getattr(torch, dtype), shape[-1]
         x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dt)
         dy = torch.randn(shape, generator=gen, device="cuda").to(dt)
         scale = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1
         bias = torch.randn(c, generator=gen, device="cuda") * 0.1
-        x = fused_gn.clear_of_kink(x, scale, bias, groups)
+        return fused_gn.clear_of_kink(x, scale, bias, groups), dy, scale, bias
+
+    def calls():  # the same inputs again, for the device times
+        gen = torch.Generator("cuda").manual_seed(1)
+        for shape, dtype in K2_SHAPES:
+            x, dy, scale, bias = inputs(gen, shape, dtype)
+            yield lambda: fused_gn.gn_lrelu_bwd(x, dy, scale, bias, groups)
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    rows = []
+    for shape, dtype in K2_SHAPES:
+        dt = getattr(torch, dtype)
+        x, dy, scale, bias = inputs(gen, shape, dtype)
         got = fused_gn.gn_lrelu_bwd(x, dy, scale, bias, groups)
         want = fused_gn.gn_lrelu_bwd_reference(x, dy, scale, bias, groups)
         torch.cuda.synchronize()
@@ -498,9 +625,9 @@ def k2_phase(torch, F, fused_gn, parent=None):
             row["ms"], row["parent_ms"] = in_turns(torch, run, old)
             row["parent_device_ms"] = device_ms(torch, old, K2_TAGS)
             row["parent_host_us"] = host_us(torch, old)
+            row["device_ms"] = device_ms(torch, run, K2_TAGS)
         else:
             row["ms"] = time_ms(torch, run)
-        row["device_ms"] = device_ms(torch, run, K2_TAGS)
         row["host_us"] = host_us(torch, run)
         row["plain_ms"] = time_ms(torch, lambda: fused_gn.gn_lrelu_bwd_reference(
             x, dy, scale, bias, groups))
@@ -511,15 +638,23 @@ def k2_phase(torch, F, fused_gn, parent=None):
         row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             yl, (xl, wl, bl), dyl, retain_graph=True))
         row["bound_ms"], row["bound_by"] = bwd_bound(shape, x.element_size())
-        row["max_abs_err"] = abs_err
+        row["max_abs_err"], row["errs"] = abs_err, errs
         rows.append(row)
-        print(f"K2 {list(shape)} {dtype} | {row['ms']:.4f} {fmt(row['device_ms'])} "
+        del x, dy, xl, wl, bl, yl, dyl
+        torch.cuda.empty_cache()
+    if not parent:
+        for row, ms in zip(rows, device_ms_each(torch, calls, len(K2_SHAPES), K2_TAGS)):
+            row["device_ms"] = ms
+    print("K2 gn_lrelu_bwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
+          "host_us | max err dx dscale dbias (relative to max(1, |ref|))"
+          + (" | parent: ms device_ms host_us" if parent else ""))
+    for row in rows:
+        errs = row.pop("errs")
+        print(f"K2 {row['shape']} {row['dtype']} | {row['ms']:.4f} {fmt(row['device_ms'])} "
               f"{row['plain_ms']:.4f} {row['library_ms']:.4f} {row['bound_ms']:.4f} | "
               f"{row['host_us']:.1f} | {errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e}"
               + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
                  f"{row['parent_host_us']:.1f}" if parent else ""))
-        del x, dy, xl, wl, bl, yl, dyl
-        torch.cuda.empty_cache()
     sums = path_sums("K2", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
                      ("train_step", "train_step_sequential"))
     return rows, sums
@@ -982,6 +1117,99 @@ class SharedNoise:
                 fail(f"noise draws differ between runs: {self.pos}")
 
 
+class SharedSigns:
+    """The card run's LeakyReLU branch at every element of every K1 site,
+    recorded in call order and imposed on the CPU run's twin. Where a
+    pre-activation lies within rounding of the kink, the devices may take
+    different branches, and one flipped element moves its whole norm
+    group's gradient (fused_gn.clear_of_kink): with data drawn anew each
+    run, an h5 step's decoder gradient once differed by 5.9e-3 that way.
+    Counts the elements whose branch the CPU's own rounding would have
+    chosen otherwise."""
+
+    def __init__(self, torch):
+        from video_gcp_torch.models import nets
+        self.torch, self.nets = torch, nets
+        self.masks, self.flips = [], 0
+
+    def run(self, fn, record):
+        torch, real, pos = self.torch, self.nets.fused_group_norm_lrelu, [0]
+
+        def recorded(x, scale, bias, groups, eps=1e-6, slope=0.2):
+            y = real(x, scale, bias, groups, eps, slope)
+            self.masks.append((y >= 0).cpu())
+            return y
+
+        def imposed(x, scale, bias, groups, eps=1e-6, slope=0.2):
+            pre = real(x, scale, bias, groups, eps, 1.0)  # the norm, no activation
+            mask = self.masks[pos[0]]
+            pos[0] += 1
+            if mask.shape != pre.shape:
+                fail(f"K1 site {pos[0]}: {tuple(pre.shape)} on the CPU, "
+                     f"{tuple(mask.shape)} on the card")
+            self.flips += int((mask != (pre >= 0)).sum())
+            return torch.where(mask, pre, slope * pre)
+
+        self.nets.fused_group_norm_lrelu = recorded if record else imposed
+        try:
+            return fn()
+        finally:
+            self.nets.fused_group_norm_lrelu = real
+            if not record and pos[0] != len(self.masks):
+                fail(f"{pos[0]} K1 sites on the CPU, {len(self.masks)} on the card")
+
+
+def run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer):
+    """trainer.run() with the launch counts reset, recording each train
+    step's K1, K2 and K3 launches with its metrics and each val pass's
+    losses. Returns them and the whole run's launches."""
+    steps, vals = [], []
+    real_step, real_val = trainer_mod.train_step, trainer.val
+
+    def counted_step(*a, **kw):
+        k1, k2, k3 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES
+        metrics = real_step(*a, **kw)
+        steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2,
+                      soft_dtw.LAUNCHES - k3, metrics))
+        return metrics
+
+    trainer_mod.train_step = counted_step
+    trainer.val = lambda epoch: vals.append(real_val(epoch)) or vals[-1]
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = fused_gn.BWD_DY_COPIES = 0
+    soft_dtw.LAUNCHES = 0
+    try:
+        trainer.run()
+    finally:
+        trainer_mod.train_step = real_step
+        del trainer.val
+    torch.cuda.synchronize()
+    return steps, vals, (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+
+
+def check_steps(torch, tag, steps, vals, per_step):
+    """Every step's (K1, K2, K3) launches `per_step`, its metrics and
+    gradients finite, and every val loss finite."""
+    got = sorted({s[:3] for s in steps})
+    if got != [per_step]:
+        fail(f"{tag}: K1/K2/K3 launches per step {got}, expected {per_step}")
+    for i, (*_, m) in enumerate(steps):
+        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
+        if bad or not bool(m["grads_finite"]):
+            fail(f"{tag}: non-finite {bad or 'gradients'} at step {i}")
+    if not all(np.isfinite(v) for val in vals for v in val.values()):
+        fail(f"{tag}: non-finite val losses {vals}")
+
+
+def unmoved(torch, model, before):
+    """Parameters with a gradient that did not move. An attention key bias
+    adds q.b to every logit of a query, which the softmax cancels: its
+    gradient is rounding noise, too small to move it."""
+    return [n for n, p in model.named_parameters()
+            if p.grad is not None and p.grad.abs().sum() > 0
+            and torch.equal(p.detach(), before[n])
+            and not (".attention_layers." in n and n.endswith(".dense.1.bias"))]
+
+
 def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_step,
                 n_steps=TRAIN_STEPS):
     """The JAX command's training run of `conf` on the card, through
@@ -997,50 +1225,19 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
     loader = trainer.train_loader
     loader.dataset.n_seqs = n_steps * TRAIN_B // loader.n_repeat
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
-    steps = []
-    real_step = trainer_mod.train_step
-
-    def counted_step(*a, **kw):
-        k1, k2, k3 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES
-        metrics = real_step(*a, **kw)
-        steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2,
-                      soft_dtw.LAUNCHES - k3, metrics))
-        return metrics
-
-    trainer_mod.train_step = counted_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = fused_gn.BWD_DY_COPIES = 0
-    soft_dtw.LAUNCHES = 0
     t0 = time.perf_counter()
-    try:
-        trainer.run()
-    finally:
-        trainer_mod.train_step = real_step
-    torch.cuda.synchronize()
+    steps, _, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
     wall = time.perf_counter() - t0
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
     copies = fused_gn.BWD_DY_COPIES
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if len(steps) != n_steps or trainer.step != n_steps:
         fail(f"{tag}: {len(steps)} steps, expected {n_steps}")
-    per_step = sorted({(a, b, c) for a, b, c, _ in steps})
-    if per_step != [(NORMS_PER_STEP, NORMS_PER_STEP, k3_per_step)]:
-        fail(f"{tag}: K1/K2/K3 launches per step {per_step}, expected "
-             f"{(NORMS_PER_STEP, NORMS_PER_STEP, k3_per_step)}")
-    for i, (_, _, _, m) in enumerate(steps):
-        if not bool(m["grads_finite"]):
-            fail(f"{tag}: non-finite gradients at step {i}")
-        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
-        if bad:
-            fail(f"{tag}: non-finite {bad} at step {i}")
-    # an attention key bias adds q.b to every logit of a query, which the
-    # softmax cancels: its gradient is rounding noise, too small to move it
-    unchanged = [n for n, p in trainer.model.named_parameters()
-                 if p.grad is not None and p.grad.abs().sum() > 0
-                 and torch.equal(p.detach(), before[n])
-                 and not (".attention_layers." in n and n.endswith(".dense.1.bias"))]
+    per_step = (NORMS_PER_STEP, NORMS_PER_STEP, k3_per_step)
+    check_steps(torch, tag, steps, [], per_step)
+    unchanged = unmoved(torch, trainer.model, before)
     if unchanged:
         fail(f"{tag}: parameters with a gradient did not change: {unchanged}")
     static = [n for n, p in trainer.model.named_parameters()
@@ -1050,7 +1247,7 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
     last = {k: float(v) for k, v in steps[-1][3].items() if v.dim() == 0}
     print(f"{tag}: {conf.name}, {n_steps} steps of B={TRAIN_B} T={TRAIN_T} in "
           f"{wall:.2f} s (checkpoint included); K1/K2/K3 launches per step "
-          f"{per_step[0]}, total {launches}")
+          f"{per_step}, total {launches}")
     print(f"{tag}: step 0 {trainer.step_seconds[0] * 1e3:.2f} ms; warm ms per step "
           f"(median of steps 3-{n_steps - 1}) {warm * 1e3:.2f}; training frames/s "
           f"{TRAIN_B * TRAIN_T / warm:.1f}; peak device memory {peak_gib:.3f} GiB; "
@@ -1068,19 +1265,20 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
 def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag,
                  tols=TOLS_TRAIN):
     """One train step of `make_model(device)` on the first 2 examples of the
-    trainer's first batch, with the same injected noise, on the card and on
-    the CPU: each loss relative to max(1, |CPU loss|) and each gradient
-    tensor's largest difference relative to its largest CPU gradient
-    within `tols`."""
+    trainer's first batch, with the same injected noise and the card's
+    LeakyReLU branches (SharedSigns), on the card and on the CPU: each loss
+    relative to max(1, |CPU loss|) and each gradient tensor's largest
+    difference relative to its largest CPU gradient within `tols`."""
     first = next(iter(DataLoader(dataset, TRAIN_B, shuffle=True, n_repeat=2,
                                  num_workers=4)))
     batch = AttrDict({k: v[:2] for k, v in first.items()})
-    noise = SharedNoise(torch, distributions)
+    noise, signs = SharedNoise(torch, distributions), SharedSigns(torch)
     results = []
     for device in ("cuda", "cpu"):
         model = make_model(device).train()
-        out = noise.run(lambda: model(AttrDict({k: v.to(device) for k, v in batch.items()}),
-                                      phase="train", mode="posterior"))
+        out = signs.run(lambda: noise.run(lambda: model(
+            AttrDict({k: v.to(device) for k, v in batch.items()}),
+            phase="train", mode="posterior")), record=device == "cuda")
         out.losses.total.value.backward()
         results.append(({k: float(v.value.detach()) for k, v in out.losses.items()},
                         {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
@@ -1095,7 +1293,9 @@ def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset
     print(f"{tag}: card vs CPU, one step on 2 examples, losses (relative): "
           + json.dumps({k: float(f"{v:.3e}") for k, v in loss_d.items()}))
     print(f"{tag}: card vs CPU, gradients of {len(grad_d)} tensors, worst "
-          f"{grad_d[worst]:.3e} ({worst}, relative to its largest CPU gradient)")
+          f"{grad_d[worst]:.3e} ({worst}, relative to its largest CPU gradient); "
+          f"LeakyReLU branches the CPU took from the card: {signs.flips} of "
+          f"{sum(m.numel() for m in signs.masks)}")
 
 
 class _Recorder:
@@ -1108,8 +1308,8 @@ class _Recorder:
     the tree optimizer's own numpy and the sampler's draws of candidates."""
 
     def __init__(self, torch, sim_mod, policy_mod, infra_sim_mod, cost_mod,
-                 sampler_mod):
-        self.torch = torch
+                 sampler_mod, profiled=1):
+        self.torch, self.profiled = torch, profiled  # the index of the profiled _plan
         self.sim, self.plans, self.actions, self.tasks = [], [], [], []
         self.first_sim = self.first_action = self.policy = self.profile = None
         self.host = dict(rollout=0.0, cost=0.0, optimize=0.0, sample=0.0)  # seconds
@@ -1151,9 +1351,9 @@ class _Recorder:
         def run_model(sim, inputs):
             t0 = time.perf_counter()
             out = orig(sim, inputs)  # ends with the copies to the host
-            rec.sim.append((inputs.z.shape[0], time.perf_counter() - t0, sim.host_bytes))
-            if rec.first_sim is None:
-                rec.first_sim = ({k: inputs[k].cpu() for k in ("I_0", "I_g", "z")}, out)
+            rec.sim.append((inputs.I_0.shape[0], time.perf_counter() - t0, sim.host_bytes))
+            if rec.first_sim is None:  # z, or a VMPC's actions and pad mask
+                rec.first_sim = ({k: v.cpu() for k, v in inputs.items()}, out)
             return out
         return run_model
 
@@ -1163,17 +1363,20 @@ class _Recorder:
         def plan(policy, state, goal, step):
             rec.policy = policy
             n0, host0 = len(rec.sim), dict(rec.host)
-            if len(rec.plans) == 1:  # the second, warm _plan: profiled
+            if len(rec.plans) == rec.profiled:  # a warm _plan: profiled
+                # device activity only: host activity too slowed the _plan
+                # and took seconds to read back for a VMPC _plan's ~8,000
+                # kernels
                 from torch.profiler import ProfilerActivity, profile
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     orig(policy, state, goal, step)
                     torch.cuda.synchronize()
                     host_ms = (time.perf_counter() - t0) * 1e3
-                busy = sum(e.self_device_time_total for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-                kernels = sum(e.count for e in prof.key_averages()
-                              if e.device_type == torch.autograd.DeviceType.CUDA)
+                device = [e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                busy = sum(e.self_device_time_total for e in device) / 1e3
+                kernels = sum(e.count for e in device)
                 rec.profile = dict(host_ms=host_ms, device_busy_ms=busy,
                                    idle_share=1 - busy / host_ms, device_ops=kernels)
                 ms = None
@@ -1232,11 +1435,63 @@ def _config_copy(rel):
     return dst
 
 
+_SETUP_DONE = []
+
+
+def control_setup(torch, tag):
+    """What the control runs read, made once per run: ep74 as a port
+    checkpoint, a copy of the base configs, and start/goal configurations
+    0..CONTROL_TASKS-1 from the port's data generation (the PRM expert, on
+    the CPU). Points GCP_EXP_DIR and GCP_DATA_DIR at them."""
+    from video_gcp_torch.planning.run import ControlManager
+    from video_gcp_torch.training.checkpoint import load_model_state
+
+    data_dir = EXP_DIR / "data"
+    os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
+    os.environ["GCP_DATA_DIR"] = str(data_dir)
+    if _SETUP_DONE:
+        return
+    for d in ("experiments", "control", "data"):
+        shutil.rmtree(EXP_DIR / d, ignore_errors=True)
+    ckpt = EXP_DIR / "prediction/9room/gcp_tree/weights/weights_ep74"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(model=load_model_state(WEIGHTS), optimizer={}, step=74),
+               ckpt / "state.pt")
+    shutil.copytree(ROOT / "experiments/prediction/base_configs",
+                    EXP_DIR / "experiments/prediction/base_configs")
+    t0 = time.perf_counter()
+    ControlManager([str(_config_copy(DATA_GEN)), "--device", "cpu", "--start_idx", "0",
+                    "--end_idx", str(CONTROL_TASKS - 1), "--seed", str(SEED)]).run()
+    print(f"{tag}: start/goal configurations 0-{CONTROL_TASKS - 1} by the PRM expert (CPU) "
+          f"in {time.perf_counter() - t0:.2f} s")
+    _SETUP_DONE.append(True)
+
+
+def first_sim_vs_cpu(torch, AttrDict, rec, tag, n=CONTROL_CANDIDATES[0]):
+    """The first simulator call of a control run, its first `n` candidates
+    with the same inputs and end_ind, card against the planner's copy on the
+    CPU (a generator only for a VMPC's zero-width latent draws)."""
+    import copy
+    cpu_model = copy.deepcopy(rec.policy.planner).cpu()
+    first_in, card_out = rec.first_sim
+    inputs = AttrDict({k: v[:n] for k, v in first_in.items()},
+                      end_ind=torch.from_numpy(card_out.end_ind[:n]))
+    with torch.inference_mode():
+        ref = cpu_model(inputs, phase="plan", mode="prior",
+                        generator=torch.Generator().manual_seed(0))
+    diffs = {}
+    for k in ("timeline_images", "timeline_latents", "actions", "regressed_state"):
+        diffs[k] = float(np.abs(card_out[k][:n] - ref[k].numpy()).max())
+        if not diffs[k] < TOLS_SLICE[k]:
+            fail(f"{tag}: the first simulator call's {k} differs from the CPU "
+                 f"by {diffs[k]} (tolerance {TOLS_SLICE[k]})")
+    return cpu_model, diffs
+
+
 def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
     """Closed-loop visual planning on 9room/gcp_tree with ep74 on the card:
     start/goal configurations from the port's data generation, then the
     control benchmark's tasks 0-1 through planning.run's ControlManager."""
-    import copy
     import types
     from video_gcp_torch.core.attrdict import load_pickle
     from video_gcp_torch.evaluation.compute_control_perf import compute_control_perf
@@ -1246,34 +1501,16 @@ def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
     from video_gcp_torch.planning.cem import simulator as sim_mod
     from video_gcp_torch.planning.infra.sim import simulator as infra_sim_mod
     from video_gcp_torch.planning.run import ControlManager
-    from video_gcp_torch.training.checkpoint import load_model_state
 
-    shutil.rmtree(EXP_DIR / "experiments", ignore_errors=True)
-    shutil.rmtree(EXP_DIR / "control", ignore_errors=True)
-    data_dir = EXP_DIR / "data"
-    shutil.rmtree(data_dir, ignore_errors=True)
-    ckpt = EXP_DIR / "prediction/9room/gcp_tree/weights/weights_ep74"
-    ckpt.mkdir(parents=True, exist_ok=True)
-    torch.save(dict(model=load_model_state(WEIGHTS), optimizer={}, step=74),
-               ckpt / "state.pt")
-    os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
-    os.environ["GCP_DATA_DIR"] = str(data_dir)
-    shutil.copytree(ROOT / "experiments/prediction/base_configs",
-                    EXP_DIR / "experiments/prediction/base_configs")
+    control_setup(torch, "plan")
     last = str(CONTROL_TASKS - 1)
-    t0 = time.perf_counter()
-    ControlManager([str(_config_copy(DATA_GEN)), "--device", "cpu", "--start_idx", "0",
-                    "--end_idx", last]).run()
-    datagen_s = time.perf_counter() - t0
-    print(f"plan: start/goal configurations 0-{last} by the PRM expert (CPU) in "
-          f"{datagen_s:.2f} s")
-
     control = _config_copy(CONTROL)
     rec = _Recorder(torch, sim_mod, planner_policy, infra_sim_mod, cost_mod, sampler_mod)
     fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0  # the control path
     t0 = time.perf_counter()
     try:
-        ControlManager([str(control), "--start_idx", "0", "--end_idx", last]).run()
+        ControlManager([str(control), "--start_idx", "0", "--end_idx", last,
+                        "--seed", str(SEED)]).run()
     finally:
         rec.restore()
     run_s = time.perf_counter() - t0
@@ -1336,17 +1573,7 @@ def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
           f"Room2Goal {perf['rooms_to_goal_mean']:.3f}")
 
     # the first simulator call and the first action, card against the CPU
-    cpu_model = copy.deepcopy(rec.policy.planner).cpu()
-    first_in, card_out = rec.first_sim
-    inputs = AttrDict(first_in, end_ind=torch.from_numpy(card_out.end_ind))
-    with torch.inference_mode():
-        ref = cpu_model(inputs, phase="plan", mode="prior")
-    diffs = {}
-    for k in ("timeline_images", "timeline_latents", "actions", "regressed_state"):
-        diffs[k] = float(np.abs(card_out[k] - ref[k].numpy()).max())
-        if not diffs[k] < TOLS_SLICE[k]:
-            fail(f"control path: the first simulator call's {k} differs from the CPU "
-                 f"by {diffs[k]} (tolerance {TOLS_SLICE[k]})")
+    cpu_model, diffs = first_sim_vs_cpu(torch, AttrDict, rec, "control path")
     img, target, got = rec.first_action
     cpu_policy = types.SimpleNamespace(planner=cpu_model, device=torch.device("cpu"))
     cpu_policy._encode = lambda im: planner_policy.ImageCEMPolicy._encode(cpu_policy, im)
@@ -1355,10 +1582,29 @@ def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
     if not diffs["action"] < TOL_ACTION:
         fail(f"control path: a closed-loop action differs from the CPU by "
              f"{diffs['action']} (tolerance {TOL_ACTION})")
-    print(f"plan: card vs CPU, the first simulator call ({len(first_in['z'])} candidates, "
+    print(f"plan: card vs CPU, the first simulator call ({len(rec.first_sim[0]['z'])} candidates, "
           "same z and end_ind) and the first action, max abs diff: "
           + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
     return k1
+
+def step_busy_ms(torch, trainer, step_fn):
+    """Device time of one train step of `trainer` on a resident batch, after
+    a warm one: the kernels the profiler records (device activity only,
+    which keeps the trace of a step's ~10,000 launches quick to read)."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = next(iter(trainer.train_loader))
+
+    def step_once():
+        step_fn(trainer.model, trainer.optimizer, batch, trainer.step, trainer.generator)
+
+    step_once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_once()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 or None
+
 
 def h5_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
              load_model):
@@ -1377,7 +1623,7 @@ def h5_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
     os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
     t0 = time.perf_counter()
     ControlManager([str(_config_copy(H5_DATA_GEN)), "--device", "cpu", "--start_idx", "0",
-                    "--end_idx", str(H5_FILES - 1)]).run()
+                    "--end_idx", str(H5_FILES - 1), "--seed", str(SEED)]).run()
     gen_s = time.perf_counter() - t0
     files = sorted((data_dir / "nav_9rooms").glob("*.h5"))
     if len(files) != H5_FILES:
@@ -1433,62 +1679,20 @@ def h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
         del probe
         lap("render_probe")
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
-    steps, vals = [], []
-    real_step, real_val = trainer_mod.train_step, trainer.val
-
-    def counted_step(*a, **kw):
-        k1, k2 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES
-        metrics = real_step(*a, **kw)
-        steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2, metrics))
-        return metrics
-
-    trainer_mod.train_step = counted_step
-    trainer.val = lambda epoch: vals.append(real_val(epoch)) or vals[-1]
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
-    try:
-        trainer.run()
-    finally:
-        trainer_mod.train_step = real_step
-    torch.cuda.synchronize()
+    steps, vals, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
     lap("train")
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
     per_epoch = len(trainer.train_loader)
     if per_epoch < 2 or len(steps) != H5_EPOCHS * per_epoch or len(vals) != H5_EPOCHS:
         fail(f"{tag}: {len(steps)} steps and {len(vals)} val passes, expected "
              f"{H5_EPOCHS} x {per_epoch} and {H5_EPOCHS}")
-    per_step = sorted({(a, b) for a, b, _ in steps})
-    if per_step != [(NORMS_PER_STEP, NORMS_PER_STEP)] or launches[2]:
-        fail(f"{tag}: K1/K2 launches per step {per_step}, K3 {launches[2]}; expected "
-             f"{(NORMS_PER_STEP, NORMS_PER_STEP)} and no K3")
-    for i, (_, _, m) in enumerate(steps):
-        bad = [k for k, v in m.items() if not torch.isfinite(v).all()]
-        if bad or not bool(m["grads_finite"]):
-            fail(f"{tag}: non-finite {bad or 'gradients'} at step {i}")
-    if not all(np.isfinite(v) for val in vals for v in val.values()):
-        fail(f"{tag}: non-finite val losses {vals}")
-    unchanged = [n for n, p in trainer.model.named_parameters()
-                 if p.grad is not None and p.grad.abs().sum() > 0
-                 and torch.equal(p.detach(), before[n])]
+    per_step = (NORMS_PER_STEP, NORMS_PER_STEP, 0)
+    check_steps(torch, tag, steps, vals, per_step)
+    unchanged = unmoved(torch, trainer.model, before)
     if unchanged:
         fail(f"{tag}: parameters with a gradient did not change: {unchanged}")
     trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
     lap("checks")
-    # device time of one step on a resident batch: the kernels the profiler
-    # records (device activity only, which keeps the trace of a step's
-    # ~10,000 launches quick to read)
-    from torch.profiler import ProfilerActivity, profile
-    batch = next(iter(trainer.train_loader))
-
-    def step_once():
-        real_step(trainer.model, trainer.optimizer, batch, trainer.step, trainer.generator)
-
-    step_once()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step_once()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 or None
+    busy = step_busy_ms(torch, trainer, trainer_mod.train_step)
     lap("device_busy")
     # per epoch: the trainer's wait for each batch against its synced steps
     per = {k: [[round(t * 1e3, 2) for t in v[e * per_epoch:(e + 1) * per_epoch]]
@@ -1497,7 +1701,7 @@ def h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
     sums = {k: [round(sum(e), 1) for e in v] for k, v in per.items()}
     print(f"{tag}: {conf.name} from {H5_FILES} h5 files, {H5_EPOCHS} epochs of {per_epoch} "
           f"steps at B={TRAIN_B} T={TRAIN_T} and a val pass each in {laps['train']:.2f} s; K1/K2 "
-          f"launches per step {per_step[0]}, total K1/K2/K3 {launches}")
+          f"launches per step {per_step[:2]}, total K1/K2/K3 {launches}")
     print(f"{tag}: per step and epoch (cold, then warm render cache): " + json.dumps(per))
     print(f"{tag}: sums per epoch, t_data {sums['t_data_ms']} ms against steps "
           f"{sums['step_ms']} ms; median of steps 1-{len(steps) - 1} "
@@ -1516,6 +1720,363 @@ def h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
     train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag)
     lap("vs_cpu")
     print(f"{tag}: host seconds of each part: " + json.dumps(laps))
+    return launches
+
+
+# the baselines phase's configs, written under the build directory: VMPC's
+# and BC's training configs beside the experiments' base configs, and their
+# control configs (the 9-room control benchmark's agent and env)
+VMPC_OVERRIDES = '''
+# VMPC: base_configs/vmpc.py's overrides over 9room/gcp_sequential
+from experiments.prediction.base_configs import vmpc
+model_config.update({k: vmpc.model_config[k] for k in (
+    'action_conditioned_pred', 'non_goal_conditioned', 'nz_vae', 'var_inf')})
+'''
+BC_CONF = '''"""Goal-conditioned behavioral cloning on nav_9rooms at the 9-room widths."""
+from video_gcp_tpu.models.bc import BCModel
+
+configuration = {'model': BCModel, 'dataset_name': 'nav_9rooms', 'batch_size': 16,
+                 'lr': 2e-4, 'epoch_cycles_train': 2, 'n_rooms': 9}
+model_config = {'ngf': 16, 'nz_enc': 128, 'nz_mid': 128, 'n_actions': 2, 'reactive': True}
+'''
+BASELINE_CONTROL = '''"""One task of the 9-room control benchmark for the MODEL baseline."""
+import importlib.util
+import os.path
+
+from video_gcp_tpu.core.attrdict import AttrDict
+from video_gcp_tpu.planning.infra.agent.general_agent import BenchmarkAgent
+from video_gcp_tpu.planning.infra.envs.multiroom2d import TopdownMultiroom2dEnv
+
+current_dir = os.path.dirname(os.path.realpath(__file__))
+GCP_EXP_DIR = os.environ['GCP_EXP_DIR']
+
+
+def train_config(name):
+    """The trained model's config, with the dims the trainer merges in from
+    nav_9rooms' dataset_spec."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(current_dir, '../../../prediction/9room', name, 'conf.py'))
+    conf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(conf)
+    return AttrDict(conf.model_config, max_seq_len=100, n_actions=2, state_dim=2)
+
+
+agent = AttrDict(
+    type=BenchmarkAgent,
+    env=(TopdownMultiroom2dEnv, dict(init_pos=None, goal_pos=None, n_rooms=9,
+                                     heading_smoothing=0.1, crop_window=40)),
+    T=200, image_height=32, image_width=32,
+    start_goal_confs=os.environ['GCP_DATA_DIR'] + '/nav_9rooms/start_goal_configs/raw',
+)
+POLICY
+config = AttrDict(current_dir=current_dir, start_index=0, end_index=0, agent=agent,
+                  policy=policy, save_format=['raw'],
+                  data_save_dir=GCP_EXP_DIR + '/control/nav_9rooms/MODEL',
+                  split_train_val_test=False, traj_per_file=1)
+'''
+VMPC_POLICY = '''
+from video_gcp_tpu.models.sequential import SequentialModel
+from video_gcp_tpu.planning.cem.cem_planner import ImageCEMPlanner
+from video_gcp_tpu.planning.cem.cost_fcn import ImageWrappedLearnedCostFcn
+from video_gcp_tpu.planning.planner_policy import ImageCEMPolicy
+
+
+class LearnedCost(ImageWrappedLearnedCostFcn):
+    """ep74's cost model on the rollouts' latents: the flat planner builds
+    its cost from (dense_cost, final_step_weight) alone."""
+
+    def __init__(self, *unused):
+        super().__init__(AttrDict(checkpt_path=GCP_EXP_DIR + '/prediction/9room/gcp_tree',
+                                  input_dim=128))
+
+
+# CEM over action sequences (the default FlatCEMSampler); the plan executes
+# the best sampled actions and replans every REPLAN env steps
+policy = AttrDict(
+    type=ImageCEMPolicy, params=train_config('vmpc'), model_cls=SequentialModel,
+    act_cond=True, checkpt_path=GCP_EXP_DIR + '/prediction/9room/vmpc',
+    cem_planner=ImageCEMPlanner,
+    cem_params=AttrDict(horizon=100, action_dim=2, n_iters=ITERS, batch_size=CANDIDATES,
+                        elite_frac=0.1, cost_fcn=LearnedCost, use_inferred_actions=False),
+    replan_interval=REPLAN,
+)
+'''
+BC_POLICY = '''
+from video_gcp_tpu.planning.infra.policy.bc_policy import BehavioralCloningPolicy
+
+policy = AttrDict(type=BehavioralCloningPolicy, params=train_config('bc'),
+                  checkpt_path=GCP_EXP_DIR + '/prediction/9room/bc')
+'''
+
+
+def _write(rel, text):
+    path = EXP_DIR / rel
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return path
+
+
+def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag):
+    """`conf` trained from the h5 phase's nav_9rooms files through
+    ModelTrainer from the port's initialisation: one epoch (4 steps at B=16,
+    T=100) and a val pass. Checks `per_step` (K1, K2, K3) launches a step,
+    finite losses, gradients and val losses. Returns the trainer, each
+    step's metrics and the launches."""
+    os.environ["GCP_DATA_DIR"] = str(EXP_DIR / "h5_data")
+    os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
+    args = trainer_mod.parse_args([
+        "--path", str(conf), "--resume", "none", "--num_epochs", "1", "--deterministic", "1",
+        "--verbose_timing", "1"])
+    trainer = trainer_mod.ModelTrainer(args)  # device 'cuda', the default
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    t0 = time.perf_counter()
+    steps, vals, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
+    wall = time.perf_counter() - t0
+    if len(steps) != len(trainer.train_loader) or len(steps) < 2 or len(vals) != 1:
+        fail(f"{tag}: {len(steps)} steps and {len(vals)} val passes")
+    check_steps(torch, tag, steps, vals, per_step)
+    # (BC's loss is divided by T*H*W*C: RAdam's first steps, which do not
+    # normalise, move its weights by less than float32 resolves)
+    with_grad = sum(p.grad is not None and bool(p.grad.abs().sum() > 0)
+                    for p in trainer.model.parameters())
+    print(f"{tag}: {conf.name} from the h5 files, {len(steps)} steps at "
+          f"B={trainer.conf['batch_size']} T={TRAIN_T} and a val pass in {wall:.2f} s; "
+          f"K1/K2/K3 launches per step {per_step}, total {launches}; synced ms per step "
+          f"{[round(t * 1e3, 1) for t in trainer.step_seconds]}; parameters with a gradient "
+          f"that did not move: {len(unmoved(torch, trainer.model, before))} of {with_grad}")
+    busy = step_busy_ms(torch, trainer, trainer_mod.train_step)
+    print(f"{tag}: device busy in a step {fmt(busy)} ms (torch.profiler, a resident batch)")
+    print(f"{tag}: last step " + json.dumps(
+        {k: float(f"{float(v):.6g}") for k, v in steps[-1][3].items() if v.dim() == 0}))
+    print(f"{tag}: val " + json.dumps({k: float(f"{v:.6g}") for k, v in vals[0].items()}))
+    return trainer, [s[3] for s in steps], launches
+
+
+def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None):
+    """One task of the 9-room control benchmark from `conf` through
+    planning.run's ControlManager on the card, with the planner's calls and
+    the policy's actions recorded. Returns the recorder, each env step's
+    seconds, the BC actions, the launches, the run's seconds and metrics."""
+    from video_gcp_torch.core.attrdict import load_pickle
+    from video_gcp_torch.evaluation.compute_control_perf import compute_control_perf
+    from video_gcp_torch.planning import planner_policy
+    from video_gcp_torch.planning.cem import cost_fcn as cost_mod
+    from video_gcp_torch.planning.cem import sampler as sampler_mod
+    from video_gcp_torch.planning.cem import simulator as sim_mod
+    from video_gcp_torch.planning.infra.policy import bc_policy
+    from video_gcp_torch.planning.infra.sim import simulator as infra_sim_mod
+    from video_gcp_torch.planning.run import ControlManager
+
+    control_setup(torch, tag)
+    rec = _Recorder(torch, sim_mod, planner_policy, infra_sim_mod, cost_mod, sampler_mod,
+                    profiled)
+    env_steps, bc_actions = [], []
+    acts = [(planner_policy.ImageCEMPolicy, planner_policy.ImageCEMPolicy.act),
+            (bc_policy.BehavioralCloningPolicy, bc_policy.BehavioralCloningPolicy.act)]
+
+    def timed_act(orig):
+        @functools.wraps(orig)  # the agent reads act's signature
+        def act(policy, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig(policy, *a, **kw)
+            env_steps.append(time.perf_counter() - t0)
+            if not np.isfinite(out.actions).all():
+                fail(f"{tag}: non-finite action {out.actions}")
+            if isinstance(policy, bc_policy.BehavioralCloningPolicy):
+                rec.policy = policy
+                bc_actions.append((dict(kw), out.actions))
+            return out
+        return act
+
+    for cls, orig in acts:
+        cls.act = timed_act(orig)
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        ControlManager([str(conf), "--start_idx", "0", "--end_idx", str(BASELINE_TASKS - 1),
+                        "--seed", str(SEED)]).run()
+    finally:
+        rec.restore()
+        for cls, orig in acts:
+            cls.act = orig
+    run_s = time.perf_counter() - t0
+    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    log = conf.parent / "log"
+    perf = compute_control_perf(load_pickle(log / f"scores_0to{BASELINE_TASKS - 1}.pkl"))
+    if not all(np.isfinite(v) for v in perf.values()):
+        fail(f"{tag}: control metrics not finite: {perf}")
+    want = (K1_PER_SIM_CALL * len(rec.sim) + K1_PER_ACTION * len(rec.actions)
+            + K1_PER_BC_ACTION * len(bc_actions))
+    if launches != (want, 0, 0):
+        fail(f"{tag}: K1/K2/K3 launches {launches}, expected ({want}, 0, 0): "
+             f"{len(rec.sim)} simulator calls, {len(rec.actions)} closed-loop actions, "
+             f"{len(bc_actions)} BC actions")
+    plan_ms = [p["ms"] for p in rec.plans if p["ms"] is not None]
+    print(f"{tag}: {BASELINE_TASKS} task in {run_s:.2f} s, {len(env_steps)} env steps, "
+          f"{len(env_steps) / sum(rec.tasks):.1f} env steps/s; K1 launches {launches[0]} = "
+          f"{K1_PER_SIM_CALL} x {len(rec.sim)} simulator calls + {K1_PER_ACTION} x "
+          f"{len(rec.actions)} closed-loop actions + {K1_PER_BC_ACTION} x {len(bc_actions)} "
+          "BC actions; no K2 or K3")
+    if rec.plans:
+        print(f"{tag}: {len(rec.plans)} _plan calls, ms each {[round(m, 1) for m in plan_ms]} "
+              f"(median {statistics.median(plan_ms):.2f}); simulator candidates per call in "
+              f"each: {[p['schedule'] for p in rec.plans]}; simulator ms per call "
+              f"{[round(t * 1e3, 1) for _, t, _ in rec.sim]}")
+    if rec.profile:
+        print(f"{tag}: profiled _plan {profiled}: " + json.dumps(
+            {k: round(v, 3) for k, v in rec.profile.items()}))
+    print(f"{tag}: a smoke run, not a quality result: success rate "
+          f"{perf['success_rate']:.3f}, penalized path cost {perf['penalized_cost']:.3f}")
+    return rec, env_steps, bc_actions, launches
+
+
+def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader,
+                    AttrDict, load_model):
+    """The paper's planning baselines in the 9-room maze on the card (see
+    the module's docstring, 12). Returns each part's K1/K2/K3 launches."""
+    import copy
+    from video_gcp_torch.training.config import build_hparams, load_config
+
+    launches, laps, clock = {}, {}, [time.perf_counter()]
+
+    def lap(what):  # seconds of each part
+        now = time.perf_counter()
+        laps[what] = round(now - clock[0], 2)
+        clock[0] = now
+
+    # 1. the flat CEM ablation: the published config with ep74
+    control_setup(torch, "baselines")
+    lap("setup")
+    rec, _, _, launches["flat_cem"] = baseline_control(
+        torch, fused_gn, soft_dtw, "flat_cem", _config_copy(FLAT_CONTROL))
+    sched = {tuple(p["schedule"]) for p in rec.plans}
+    if sched != {(5, 5)}:
+        fail(f"flat_cem: simulator candidates per _plan {sched}, expected one call of 5 "
+             "and the re-rollout of the 5 elites")
+    _, diffs = first_sim_vs_cpu(torch, AttrDict, rec, "flat_cem")
+    print("flat_cem: card vs CPU, the first simulator call (5 candidates, same z and "
+          "end_ind), max abs diff: " + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
+    lap("flat_cem")
+
+    # 2. VMPC: trained 4 steps, then CEM over action sequences
+    vmpc_conf = _write("experiments/prediction/9room/vmpc/conf.py",
+                       (SEQ_CONF / "conf.py").read_text() + VMPC_OVERRIDES)
+    trainer, steps, launches["vmpc_train"] = baseline_train(
+        torch, fused_gn, soft_dtw, trainer_mod, vmpc_conf.parent, VMPC_PER_STEP, "vmpc")
+    if any(float(m["kl"]) != 0.0 for m in steps):
+        fail(f"vmpc: non-zero KL {[float(m['kl']) for m in steps]} (nz_vae = 0)")
+    trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+
+    def vmpc_model(device):
+        model = load_model(vmpc_conf.parent, device=device)
+        model.load_state_dict(trained)
+        return model
+
+    train_vs_cpu(torch, vmpc_model, AttrDict, distributions, DataLoader,
+                 trainer.train_loader.dataset, "vmpc")
+    del trainer
+    lap("vmpc_train")
+    rec, _, _, launches["vmpc_plan"] = baseline_control(
+        torch, fused_gn, soft_dtw, "vmpc_plan", _write(
+            "experiments/control/9room/vmpc/mod_hyper.py",
+            BASELINE_CONTROL.replace("POLICY", VMPC_POLICY).replace("MODEL", "vmpc")
+            .replace("ITERS", str(VMPC_ITERS)).replace("CANDIDATES", str(VMPC_CANDIDATES))
+            .replace("REPLAN", str(VMPC_REPLAN))), profiled=1)
+    if rec.first_sim is None or "actions" not in rec.first_sim[0] or "z" in rec.first_sim[0]:
+        fail("vmpc_plan: the simulator was not driven by action sequences")
+    _, diffs = first_sim_vs_cpu(torch, AttrDict, rec, "vmpc_plan")
+    print(f"vmpc_plan: card vs CPU, the first simulator call (the first "
+          f"{CONTROL_CANDIDATES[0]} of {VMPC_CANDIDATES} action sequences, no latent, "
+          "fixed length), max abs diff: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
+    lap("vmpc_plan")
+
+    # 3. goal-conditioned BC (reactive): trained 4 steps, then one task
+    bc_conf = _write("experiments/prediction/9room/bc/conf.py", BC_CONF)
+    trainer, _, launches["bc_train"] = baseline_train(
+        torch, fused_gn, soft_dtw, trainer_mod, bc_conf.parent,
+        (BC_NORMS_PER_STEP, BC_NORMS_PER_STEP, 0), "bc")
+    trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+
+    def bc_model(device):
+        model = load_model(bc_conf.parent, device=device)
+        model.load_state_dict(trained)
+        return model
+
+    train_vs_cpu(torch, bc_model, AttrDict, distributions, DataLoader,
+                 trainer.train_loader.dataset, "bc")
+    del trainer
+    lap("bc_train")
+    rec, env_steps, bc_actions, launches["bc_act"] = baseline_control(
+        torch, fused_gn, soft_dtw, "bc_act", _write(
+            "experiments/control/9room/bc/mod_hyper.py",
+            BASELINE_CONTROL.replace("POLICY", BC_POLICY).replace("MODEL", "bc")))
+    policy = rec.policy
+    cpu_model = copy.deepcopy(policy.model).cpu()
+    kw, got = bc_actions[0]
+    i0 = policy._preprocess_input(kw["images"][kw["t"]])
+    ig = policy._preprocess_input(kw["goal_image"][-1] if np.ndim(kw["goal_image"]) > 4
+                                  else kw["goal_image"])
+    with torch.inference_mode():
+        want = cpu_model.act_single(torch.from_numpy(i0), torch.from_numpy(ig))[0].numpy()[0]
+    diff = float(np.abs(got - want).max())
+    if not diff < TOL_ACTION:
+        fail(f"bc_act: the first action differs from the CPU by {diff} (tol {TOL_ACTION})")
+    print(f"bc_act: {statistics.median(env_steps[1:]) * 1e3:.3f} ms per env step (median); "
+          f"card vs CPU, the first action, max abs diff {diff:.3e}")
+    lap("bc_act")
+
+    # 4. 9room/gcp_sequential with use_conv_lstm, from the port's initialisation
+    bundle = load_config(SEQ_CONF)
+    hp = build_hparams(bundle).overwrite(dict(use_conv_lstm=True))
+    torch.manual_seed(0)
+    with torch.device("cuda"):  # 71M parameters: initialised on the card
+        model = bundle.configuration["model"](hp)
+    model = model.to(memory_format=torch.channels_last).eval()
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, (TRAIN_B, 2, 32, 32, 3)).astype(np.uint8)
+    z = rng.randn(TRAIN_B, TRAIN_T - 1, hp["nz_vae"]).astype(np.float32)
+
+    def inputs(b, device):
+        return AttrDict(I_0=torch.from_numpy(frames[:b, 0]).to(device),
+                        I_g=torch.from_numpy(frames[:b, 1]).to(device),
+                        end_ind=torch.full((b,), TRAIN_T - 1, device=device),
+                        z=torch.from_numpy(z[:b]).to(device))
+
+    times = []
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    with torch.inference_mode():
+        for _ in range(2):  # cold, then warm
+            t0 = time.perf_counter()
+            out = model(inputs(TRAIN_B, "cuda"), phase="test", mode="prior")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches["conv_lstm"] = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    if launches["conv_lstm"] != (2 * K1_PER_SIM_CALL, 0, 0):
+        fail(f"conv_lstm: K1/K2/K3 launches {launches['conv_lstm']} in 2 forwards")
+    if out.dense_rec.images.shape != (TRAIN_B, TRAIN_T, 32, 32, 3) or not all(
+            torch.isfinite(out.dense_rec[k]).all() for k in ("images", "encodings")):
+        fail("conv_lstm: the rollout is not finite or not of its shape")
+    state = model.cell.lstm.state_size
+    with torch.inference_mode():
+        card = model(inputs(CONV_LSTM_B, "cuda"), phase="test", mode="prior")
+        ref = copy.deepcopy(model).cpu()(inputs(CONV_LSTM_B, "cpu"), phase="test",
+                                         mode="prior")
+    diffs = {k: float((card.dense_rec[k].cpu() - ref.dense_rec[k]).abs().max())
+             for k in ("images", "encodings")}
+    if not (diffs["images"] < TOLS_SLICE["images"]
+            and diffs["encodings"] < TOLS_SLICE["timeline_latents"]):
+        fail(f"conv_lstm: card vs CPU {diffs}")
+    print(f"conv_lstm: 9room/gcp_sequential with use_conv_lstm ({sum(p.numel() for p in model.parameters())} "
+          f"parameters, packed state {state}), a B={TRAIN_B} T={TRAIN_T} prior rollout with "
+          f"injected z: cold {times[0] * 1e3:.1f} ms, warm {times[1] * 1e3:.1f} ms; K1 "
+          f"{K1_PER_SIM_CALL} a forward; card vs CPU at B={CONV_LSTM_B}, max abs diff "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
+    del model
+    torch.cuda.empty_cache()
+    lap("conv_lstm")
+    print("baselines: seconds of each part " + json.dumps(laps) + "; K1/K2/K3 launches "
+          + json.dumps(launches))
     return launches
 
 
@@ -1604,6 +2165,8 @@ def main():
                 distributions, DataLoader, trainer.train_loader.dataset, "train")
     h5_launches = timed_phase("h5_train", h5_phase, torch, fused_gn, soft_dtw, trainer_mod,
                               distributions, DataLoader, AttrDict, load_model)
+    base_launches = timed_phase("baselines", baselines_phase, torch, fused_gn, soft_dtw,
+                                trainer_mod, distributions, DataLoader, AttrDict, load_model)
 
     # from the port's initialisation: --resume latest finds no checkpoint
     shutil.rmtree(EXP_DIR / "prediction/9room/gcp_adaptive", ignore_errors=True)
@@ -1652,16 +2215,19 @@ def main():
              "video_gcp_tpu/ops/fused_gn.py:97",
              dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1,
                   serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1, plan=plan_k1,
-                  **{f"h5_train_{n}": v[0] for n, v in h5_launches.items()})),
+                  **{f"h5_train_{n}": v[0] for n, v in h5_launches.items()},
+                  **{k: v[0] for k, v in base_launches.items()})),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
              dict(serve=0, train=train_k2, train_adaptive=ad_k2, serve_bf16=0,
                   train_bf16=train16_k2, eval=0, plan=0,
-                  **{f"h5_train_{n}": v[1] for n, v in h5_launches.items()})),
+                  **{f"h5_train_{n}": v[1] for n, v in h5_launches.items()},
+                  **{k: v[1] for k, v in base_launches.items()})),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
              dict(serve=0, train=0, train_adaptive=ad_k3, serve_bf16=0, train_bf16=0,
-                  eval=0, plan=0, **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()}),
+                  eval=0, plan=0, **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()},
+                  **{k: v[2] for k, v in base_launches.items()}),
              source=soft_dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")

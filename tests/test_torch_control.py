@@ -109,3 +109,21 @@ def test_control_run_refuses_a_task_the_jax_package_ran(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="written by the JAX package"):
         ControlManager([str(toy), "--device", "cpu"]).run()
     assert not (log / "scores_0to0.pkl").exists()
+
+
+def test_seeded_runs_repeat(tmp_path, monkeypatch):
+    """--seed S seeds each worker's np.random (worker i: S + i): the PRM
+    expert's start/goal configurations repeat run for run and differ
+    between seeds."""
+    monkeypatch.setenv("GCP_EXP_DIR", str(tmp_path / "exp"))
+    starts = {}
+    for run, seed in (("a", 3), ("b", 3), ("c", 4)):
+        monkeypatch.setenv("GCP_DATA_DIR", str(tmp_path / run))
+        data_gen = _copy_config(DATA_GEN, tmp_path / run)
+        ControlManager([str(data_gen), "--device", "cpu", "--start_idx", "0",
+                        "--end_idx", "0", "--seed", str(seed)]).run()
+        confs = tmp_path / run / "nav_9rooms/start_goal_configs/raw/traj_group0/traj0"
+        obs = load_pickle(confs / "obs_dict.pkl")
+        starts[run] = np.asarray(obs["state"], np.float64)
+    assert np.array_equal(starts["a"], starts["b"])
+    assert not np.array_equal(starts["a"], starts["c"])

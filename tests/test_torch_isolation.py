@@ -191,3 +191,62 @@ def test_data_and_sequential_modules_import_no_jax_h5py_or_opencv():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+_BC_SCRIPT = """
+import sys, tempfile
+from pathlib import Path
+import numpy as np
+import torch
+from video_gcp_torch.core.attrdict import AttrDict
+from video_gcp_torch.models.bc import BCModel
+from video_gcp_torch.models.hyperparameters import default_hparams
+from video_gcp_torch.planning.infra.policy.bc_policy import BehavioralCloningPolicy
+
+params = dict(n_actions=2, img_sz=16, reactive=False)
+hp = default_hparams()
+hp.overwrite(dict(params, batch_size=1))
+exp = Path(tempfile.mkdtemp())
+(exp / "weights/weights_ep0").mkdir(parents=True)
+torch.save(dict(model=BCModel(dict(hp)).state_dict(), optimizer={}, step=0),
+           exp / "weights/weights_ep0/state.pt")
+policy = BehavioralCloningPolicy(dict(T=10, device="cpu"),
+                                 dict(params=params, checkpt_path=str(exp)))
+images = np.zeros((3, 1, 16, 16, 3), np.uint8)  # [T, camera, H, W, C]
+for t in range(2):
+    out = policy.act(t=t, i_tr=0, images=images, goal_image=images[:1])
+assert out.actions.shape == (2,) and policy.hidden_var is not None
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "video_gcp_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_bc_model_and_policy_import_no_jax():
+    """models/bc.py and planning/infra/policy/bc_policy.py: a recurrent BC
+    policy restored from a port checkpoint acts twice without jax, flax or
+    video_gcp_tpu."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _BC_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_bc_policy_defaults_to_the_card(monkeypatch, tmp_path):
+    from video_gcp_torch.models.bc import BCModel
+    from video_gcp_torch.models.hyperparameters import default_hparams
+    from video_gcp_torch.planning.infra.policy.bc_policy import BehavioralCloningPolicy
+
+    params = dict(n_actions=2, img_sz=16)
+    hp = default_hparams()
+    hp.overwrite(dict(params, batch_size=1))
+    (tmp_path / "weights/weights_ep0").mkdir(parents=True)
+    torch.save(dict(model=BCModel(dict(hp)).state_dict(), optimizer={}, step=0),
+               tmp_path / "weights/weights_ep0/state.pt")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = dict(params=params, checkpt_path=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BehavioralCloningPolicy(dict(T=10), conf)
+    policy = BehavioralCloningPolicy(dict(T=10, device="cpu"), conf)  # asked for the CPU
+    assert next(policy.model.parameters()).device.type == "cpu"

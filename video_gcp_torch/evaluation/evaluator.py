@@ -17,9 +17,10 @@ sequences in the reference's channel-first layout [B, T, C, H, W] so the
 offline FVD and LPIPS tools read them unchanged, and image strips and gifs
 through the eval logger.
 
-The prior forward reads only the start and goal frames, the end index and
-injected latents `z` if given: the JAX program also encodes the sequence,
-a value no output uses, which XLA drops. The JAX Evaluator's state-space
+The prior forward reads only the start and goal frames, the end index,
+injected latents `z` if given and the actions, which only an
+action-conditioned model (VMPC) reads: the JAX program also encodes the
+sequence, a value no output uses, which XLA drops. The JAX Evaluator's state-space
 branch (`use_images=False`) serves `use_convs=False` models, which the port
 does not build.
 """
@@ -39,7 +40,7 @@ from video_gcp_torch.load import set_float32_precision
 from video_gcp_torch.ops.tree_index import breadthfirst2depthfirst
 
 LOWER_IS_BETTER = ["mse"]  # psnr and ssim: higher is better
-PRIOR_INPUTS = ("I_0", "I_g", "end_ind", "start_ind", "z")
+PRIOR_INPUTS = ("I_0", "I_g", "end_ind", "start_ind", "z", "actions")
 
 
 class Evaluator:

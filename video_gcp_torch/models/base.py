@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core import distributions
@@ -23,6 +24,7 @@ from video_gcp_torch.models.aux_models import (
     gather_t,
 )
 from video_gcp_torch.models.nets import (
+    MLP,
     ConvDecoder,
     ConvEncoder,
     GaussianLogSigma,
@@ -54,8 +56,6 @@ class BaseGCPModel(nn.Module):
     # Implemented in the JAX package, not yet in the port (ROADMAP queue 1).
     _UNPORTED_DEFAULTS = dict(
         use_convs=True,
-        act_cond_inference=False,
-        action_conditioned_pred=False,
     )
 
     def __init__(self, hp):
@@ -127,8 +127,13 @@ class BaseGCPModel(nn.Module):
 
         self.inf_encoder = build_seq_encoder(hp)  # may be None
         self.inf_key_encoder = build_seq_encoder(hp)
-
         nz = hp["nz_enc"]
+        if hp.get("act_cond_inference", False):
+            # action-conditioned inference: the zero-padded actions fused
+            # into the temporal inference encoding (ActionConditioningWrapper,
+            # auxilliary_models/misc.py:59-70)
+            self.act_cond_net = MLP(nz + hp["n_actions"], nz, hp["nz_mid"],
+                                    hp["n_processing_layers"])
         if hp["regress_length"]:
             self.length_pred = LengthPredictor(hp)
         if hp["attach_inv_mdl"]:
@@ -144,6 +149,9 @@ class BaseGCPModel(nn.Module):
             self.cost_mdl = CostModel(cost_p, nz)
         if hp["attach_state_regressor"]:
             self.state_regressor = StateRegressor(hp)
+        if hp["action_conditioned_pred"]:
+            self.action_encoder = MLP(hp["n_actions"], nz, hp["nz_mid"],
+                                      hp["n_processing_layers"])
 
     def _start_goal_encoder(self) -> nn.Module:
         # not registered twice: a shared encoder would duplicate state_dict keys
@@ -172,7 +180,8 @@ class BaseGCPModel(nn.Module):
         return inputs
 
     def run_encoder(self, inputs: AttrDict) -> AttrDict:
-        """Encode the sequence (when given) and the start/goal frames."""
+        """Encode the sequence (when given), the start/goal frames and,
+        under action_conditioned_pred, the actions [B, T-1, n_actions]."""
         if "traj_seq" in inputs and "enc_traj_seq" not in inputs:
             seq = inputs.traj_seq
             b, t = seq.shape[:2]
@@ -183,10 +192,19 @@ class BaseGCPModel(nn.Module):
                               ("inf_enc_key_seq", self.inf_key_encoder)):
                 inputs[name] = (inputs.enc_traj_seq if enc is None
                                 else enc(inputs.enc_traj_seq))
+            if self.hp.get("act_cond_inference", False):
+                # the actions zero-padded at the end to the sequence's
+                # length (misc.py:66-69) and fused into the inference
+                # encoding
+                seq, acts = inputs.inf_enc_seq, inputs.actions
+                acts = F.pad(acts, (0, 0, 0, max(seq.shape[1] - acts.shape[1], 0)))
+                inputs.inf_enc_seq = self.act_cond_net(seq, acts[:, :seq.shape[1]])
 
         sg_encoder = self._start_goal_encoder()
         inputs.e_0, inputs.skips = sg_encoder(inputs.I_0)
         inputs.e_g = sg_encoder(inputs.I_g)[0]
+        if self.hp["action_conditioned_pred"] and "actions" in inputs:
+            inputs.enc_action_seq = self.action_encoder(inputs.actions)
         return inputs
 
     def get_end_ind(self, inputs: AttrDict, outputs: AttrDict,
@@ -199,7 +217,7 @@ class BaseGCPModel(nn.Module):
             outputs.update(self.length_pred(inputs.e_0, inputs.e_g, generator))
             if pred_length and (hp["length_pred_weight"] > 0 or end_ind is None):
                 end_ind = outputs.end_ind_pred
-                if hp["non_goal_conditioned"]:
+                if hp["action_conditioned_pred"] or hp["non_goal_conditioned"]:
                     end_ind = torch.full_like(end_ind, hp["max_seq_len"] - 1)
         outputs.end_ind = end_ind
         return end_ind

@@ -1,7 +1,7 @@
 """Network building blocks (models/nets.py of the JAX package), main-path
 subset: GroupNorm+LeakyReLU, MLP, conv encoder/decoder pyramids, Gaussian
-heads, the packed-state LSTM stack, the conv sequence encoder and the
-time-masked multi-head attention of the attentive inference.
+heads, the packed-state LSTM and ConvLSTM stacks, the conv sequence encoder
+and the time-masked multi-head attention of the attentive inference.
 
 Images are NHWC at every public function, as in the JAX package. A conv layer
 sees the same memory as an NCHW tensor in `torch.channels_last` (a permuted
@@ -278,6 +278,14 @@ class LSTMStack(Casting, nn.Module):
             nn.init.zeros_(cell.bias_ih)
             cell.bias_ih.requires_grad_(False)
 
+    @property
+    def state_size(self) -> int:
+        return self.n_layers * 2 * self.size
+
+    def top_h(self, packed: torch.Tensor) -> torch.Tensor:
+        """The top layer's h, [..., size]."""
+        return packed[..., -self.size:]
+
     def forward(self, packed: torch.Tensor, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         dt, pdt = self.dtypes(self.optimized_lstm_cell[0].weight_hh)
@@ -295,8 +303,81 @@ class LSTMStack(Casting, nn.Module):
                 x.reshape(lead + (self.size,)).to(pdt))
 
 
+CONV_LSTM_SPATIAL = 4  # the latent grid's side in the conv-LSTM variant
+
+
+class ConvLSTMCell(nn.Module):
+    """flax's `nn.ConvLSTMCell` with 3x3 'SAME' convs (padding 1) on NHWC
+    grids: `ih` on the input and `hh` on h, each with a bias; the gates
+    split in the order i, g, f, o, and f = sigmoid(f + 1)."""
+
+    def __init__(self, size: int):
+        super().__init__()
+        self.ih = nn.Conv2d(size, 4 * size, 3, padding=1)
+        self.hh = nn.Conv2d(size, 4 * size, 3, padding=1)
+
+    def forward(self, c: torch.Tensor, h: torch.Tensor, x: torch.Tensor,
+                dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        gates = conv_nhwc(self.ih, x, dtype) + conv_nhwc(self.hh, h, dtype)
+        i, g, f, o = gates.chunk(4, -1)
+        new_c = torch.sigmoid(f + 1) * c + torch.sigmoid(i) * torch.tanh(g)
+        return new_c, torch.sigmoid(o) * torch.tanh(new_c)
+
+
+class ConvLSTMStack(Casting, nn.Module):
+    """Multi-layer ConvLSTM advancing one step over a 4x4 latent grid (the
+    JAX package's ConvLSTMStack, hp.use_conv_lstm), with
+    LSTMStack's packed-state contract: one tensor [..., n_layers * 2 *
+    spatial^2 * size] laid out [layer, (c|h), y, x, channel]. A vector step
+    input enters through a Dense stem reshaped onto the grid; the step
+    output is the top layer's h averaged over the grid, [..., size]."""
+
+    spatial = CONV_LSTM_SPATIAL
+
+    def __init__(self, in_size: int, size: int, n_layers: int):
+        super().__init__()
+        self.size, self.n_layers = size, n_layers
+        self.dense = nn.ModuleList([nn.Linear(in_size, self.spatial ** 2 * size)])
+        self.conv_lstm_cell = nn.ModuleList(ConvLSTMCell(size) for _ in range(n_layers))
+
+    @property
+    def state_size(self) -> int:
+        return self.n_layers * 2 * self.spatial ** 2 * self.size
+
+    def top_h(self, packed: torch.Tensor) -> torch.Tensor:
+        """The top layer's h averaged over the grid, [..., size]."""
+        s, c = self.spatial, self.size
+        h = packed[..., -s * s * c:]
+        return h.reshape(h.shape[:-1] + (s, s, c)).mean(dim=(-3, -2))
+
+    def forward(self, packed: torch.Tensor, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt, pdt = self.dtypes(self.dense[0].weight)
+        s, c = self.spatial, self.size
+        lead = packed.shape[:-1]
+        maps = packed.reshape(-1, self.n_layers, 2, s, s, c).to(dt)
+        x = linear(self.dense[0], x.reshape(-1, x.shape[-1]), dt).reshape(-1, s, s, c)
+        layers = []
+        for i, cell in enumerate(self.conv_lstm_cell):
+            new_c, x = cell(maps[:, i, 0], maps[:, i, 1], x, dt)
+            layers.append(torch.stack([new_c, x], 1))  # [N, (c|h), y, x, channel]
+        new = torch.stack(layers, 1).reshape(lead + (self.state_size,))
+        return new.to(pdt), x.mean(dim=(1, 2)).reshape(lead + (c,)).to(pdt)
+
+
+def make_lstm_stack(hp, in_size: int) -> nn.Module:
+    """The recurrent core the hparams ask for: ConvLSTMStack under
+    hp.use_conv_lstm, else LSTMStack; both pack their state alike."""
+    cls = ConvLSTMStack if hp.get("use_conv_lstm", False) else LSTMStack
+    return cls(in_size, hp["nz_mid_lstm"], hp["n_lstm_layers"])
+
+
 def lstm_state_size(hp) -> int:
-    return hp["n_lstm_layers"] * 2 * hp["nz_mid_lstm"]
+    """The packed state's width for the configured stack."""
+    size = hp["n_lstm_layers"] * 2 * hp["nz_mid_lstm"]
+    if hp.get("use_conv_lstm", False):
+        size *= CONV_LSTM_SPATIAL ** 2
+    return size
 
 
 class ConvSeqEncoder(Casting, nn.Module):

@@ -35,24 +35,27 @@ from video_gcp_torch.models.nets import (
     MLP,
     Casting,
     GaussianHead,
-    LSTMStack,
     linear,
     lstm_state_size,
+    make_lstm_stack,
     set_compute_dtype,
 )
 
 
 class VRNNCell(Casting, nn.Module):
-    """One VRNN step over the packed LSTM state (blox VRNNCell). The output
-    projection computes in the compute dtype; its tanh runs in the
-    parameters' dtype, as the JAX cell's in float32."""
+    """One VRNN step over the packed LSTM (or ConvLSTM) state (blox
+    VRNNCell). The LSTM's step input is [x, z, context]; the context is
+    [e_0, e_g] and, under action_conditioned_pred, the step's encoded
+    action. The output projection computes in the compute dtype; its tanh
+    runs in the parameters' dtype, as the JAX cell's in float32."""
 
     def __init__(self, hp):
         super().__init__()
         nz_enc, nz_vae, mid, n = (hp["nz_enc"], hp["nz_vae"], hp["nz_mid"],
                                   hp["n_processing_layers"])
         size = hp["nz_mid_lstm"]
-        self.lstm = LSTMStack(nz_enc + nz_vae + 2 * nz_enc, size, hp["n_lstm_layers"])
+        context = (3 if hp["action_conditioned_pred"] else 2) * nz_enc
+        self.lstm = make_lstm_stack(hp, nz_enc + nz_vae + context)
         self.prior_head = GaussianHead(size, nz_vae, mid, n)
         self.inf_head = GaussianHead(size + nz_enc, nz_vae, mid, n)
         self.out_proj = nn.Linear(size, nz_enc)
@@ -60,7 +63,7 @@ class VRNNCell(Casting, nn.Module):
     def forward(self, state, x, context, x_prime: Optional[torch.Tensor],
                 z_ext: Optional[torch.Tensor], mode: str,
                 generator: Optional[torch.Generator]):
-        h_top = state[..., -self.lstm.size:]  # the top layer's h
+        h_top = self.lstm.top_h(state)
         p_z = self.prior_head(h_top)
         q_z = self.inf_head(h_top, x_prime) if x_prime is not None else p_z
         if z_ext is not None:
@@ -83,9 +86,6 @@ class SequentialModel(BaseGCPModel):
     def __init__(self, hp, dtype: Optional[torch.dtype] = None):
         super().__init__(hp)
         hp = self.hp
-        if hp.get("use_conv_lstm", False):
-            raise NotImplementedError(
-                "use_conv_lstm (ConvLSTMStack) is not ported yet (ROADMAP item 10)")
         if self.use_dlm:
             # the log sigma serves only the Gaussian decoder's NLL; flax
             # creates the parameter where it is first used, so the JAX
@@ -105,6 +105,12 @@ class SequentialModel(BaseGCPModel):
         t_steps = self.hp["max_seq_len"] - 1
         context = torch.cat([inputs.e_0, inputs.e_g], dim=-1)
         state, x = self.init_mlp(inputs.e_0, context), inputs.e_0
+        more = None
+        if self.hp["action_conditioned_pred"]:
+            if "enc_action_seq" not in inputs:
+                raise ValueError("action_conditioned_pred: the rollout needs "
+                                 "inputs.actions [B, T-1, n_actions]")
+            more = inputs.enc_action_seq  # [B, T-1, nz_enc], one per step
         x_primes = inputs.get("enc_traj_seq")
         z = inputs.get("z")
         if z is not None:
@@ -112,8 +118,9 @@ class SequentialModel(BaseGCPModel):
             z = z[:, :t_steps].to(self.param_dtype)
         xs, q_zs, p_zs = [], [], []
         for t in range(t_steps):
+            step_context = context if more is None else torch.cat([context, more[:, t]], -1)
             state, x, q_z, p_z = self.cell(
-                state, x, context, None if x_primes is None else x_primes[:, t + 1],
+                state, x, step_context, None if x_primes is None else x_primes[:, t + 1],
                 None if z is None else z[:, t], mode, generator)
             xs.append(x)
             q_zs.append(q_z)
@@ -137,7 +144,8 @@ class SequentialModel(BaseGCPModel):
         """The inputs and outputs of TreeModel.forward, with the dense
         rollout in `outputs.dense_rec` (encodings, q_z, p_z, images and the
         DLM parameters) in place of the tree; injected latents `z` are
-        [B, T-1 (or T), nz_vae], one per step."""
+        [B, T-1 (or T), nz_vae], one per step. An action-conditioned model
+        (VMPC) takes `actions` [B, >= T-1, n_actions] in every phase."""
         if phase not in ("train", "test", "plan") or mode not in ("prior", "posterior"):
             raise ValueError(f"unknown phase/mode {phase!r}/{mode!r}")
         if mode == "posterior" and "traj_seq" not in inputs:

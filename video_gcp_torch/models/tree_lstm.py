@@ -1,6 +1,7 @@
 """TreeLSTM subgoal predictors (models/tree_lstm.py of the JAX package):
 fuse the two parents' packed LSTM states, step an LSTM stack, emit the
-subgoal latent. Dense fusions only."""
+subgoal latent. Under hp.use_conv_lstm the stack is a ConvLSTMStack, each
+packed chunk is a latent grid and the linear fusions are 3x3 convs."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -8,14 +9,15 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from video_gcp_torch.models.nets import MLP, Casting, LSTMStack, linear, lstm_state_size
-
-
-def _no_conv_lstm(hp):
-    if hp.get("use_conv_lstm", False):
-        raise NotImplementedError(
-            "use_conv_lstm (ConvLSTMStack) is not ported yet; ROADMAP queue 1, "
-            "item 10")
+from video_gcp_torch.models.nets import (
+    CONV_LSTM_SPATIAL,
+    MLP,
+    Casting,
+    conv_nhwc,
+    linear,
+    lstm_state_size,
+    make_lstm_stack,
+)
 
 
 class TreeLSTMPredictor(Casting, nn.Module):
@@ -23,25 +25,44 @@ class TreeLSTMPredictor(Casting, nn.Module):
 
     fusion 'sum' adds the parents' packed states, 'linear' projects their
     concatenation, 'split_linear' projects each (layer, c|h) chunk pair with
-    its own Linear (the published choice). The projections and the output
-    head compute in the compute dtype; the fused state and the subgoal
-    latent return in the parameters' dtype."""
+    its own Linear (the published choice), or its own 3x3 conv under
+    use_conv_lstm. The projections and the output head compute in the
+    compute dtype; the fused state and the subgoal latent return in the
+    parameters' dtype."""
 
     def __init__(self, hp, fusion: str, in_size: int):
         super().__init__()
-        _no_conv_lstm(hp)
         if fusion not in ("sum", "linear", "split_linear"):
             raise ValueError(f"unknown tree_lstm fusion {fusion!r}")
         self.fusion = fusion
+        self.conv = hp.get("use_conv_lstm", False)
         state = lstm_state_size(hp)
         self.n_chunks = 2 * hp["n_lstm_layers"] if fusion == "split_linear" else 1
         if fusion != "sum":
             width = state // self.n_chunks
-            self.proj = nn.ModuleList(
-                nn.Linear(2 * width, width) for _ in range(self.n_chunks))
-        self.lstm_stack = nn.ModuleList(
-            [LSTMStack(in_size, hp["nz_mid_lstm"], hp["n_lstm_layers"])])
+            if self.conv:
+                ch = width // CONV_LSTM_SPATIAL ** 2
+                self.proj = nn.ModuleList(
+                    nn.Conv2d(2 * ch, ch, 3, padding=1) for _ in range(self.n_chunks))
+            else:
+                self.proj = nn.ModuleList(
+                    nn.Linear(2 * width, width) for _ in range(self.n_chunks))
+        # flax names the stack after its class: LSTMStack_0 / ConvLSTMStack_0
+        self.stack_name = "conv_lstm_stack" if self.conv else "lstm_stack"
+        setattr(self, self.stack_name, nn.ModuleList([make_lstm_stack(hp, in_size)]))
         self.dense = nn.ModuleList([nn.Linear(hp["nz_mid_lstm"], hp["nz_enc"])])
+
+    def _project(self, proj: nn.Module, cl: torch.Tensor, cr: torch.Tensor,
+                 dt: torch.dtype) -> torch.Tensor:
+        x = torch.cat([cl, cr], -1)
+        if not self.conv:
+            return linear(proj, x, dt)
+        # the concatenation [cl, cr] is reshaped onto the grid as a whole,
+        # as the JAX module does: a cell's channels are not cl's, then cr's
+        s = CONV_LSTM_SPATIAL
+        lead, width = x.shape[:-1], cl.shape[-1]
+        grid = x.reshape(-1, s, s, x.shape[-1] // (s * s))
+        return conv_nhwc(proj, grid, dt).reshape(lead + (width,))
 
     def forward(self, hidden_l: torch.Tensor, hidden_r: torch.Tensor,
                 *inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,9 +72,10 @@ class TreeLSTMPredictor(Casting, nn.Module):
         else:
             pairs = zip(hidden_l.chunk(self.n_chunks, -1),
                         hidden_r.chunk(self.n_chunks, -1))
-            fused = torch.cat([linear(proj, torch.cat(p, -1), dt)
-                               for proj, p in zip(self.proj, pairs)], -1).to(pdt)
-        new_state, out = self.lstm_stack[0](fused, torch.cat(inputs, -1))
+            fused = torch.cat([self._project(proj, cl, cr, dt)
+                               for proj, (cl, cr) in zip(self.proj, pairs)], -1).to(pdt)
+        stack = getattr(self, self.stack_name)[0]
+        new_state, out = stack(fused, torch.cat(inputs, -1))
         return new_state, torch.tanh(linear(self.dense[0], out, dt)).to(pdt)
 
 
@@ -63,7 +85,6 @@ class LSTMInitializer(nn.Module):
 
     def __init__(self, hp):
         super().__init__()
-        _no_conv_lstm(hp)
         self.kind = hp.get("lstm_init", "zero")
         self.state_size = lstm_state_size(hp)
         if self.kind == "mlp":

@@ -30,7 +30,8 @@ PLAN_KEYS = ("end_ind", "timeline_images", "timeline_latents", "actions",
 class GCPSimulator:
     """State-space simulator (flat vector observations).
 
-    :param model: the port's TreeModel in eval mode, on its device
+    :param model: the port's TreeModel or SequentialModel in eval mode, on
+        its device
     :param mesh: candidate sharding over several devices (the JAX package's
         SPMD mesh); not ported, so only None is accepted
     """
@@ -115,10 +116,12 @@ class GCPImageSimulator(GCPSimulator):
 
 
 class ActCondGCPImageSimulator(GCPImageSimulator):
-    """Action-conditioned variant (cem_simulator.py:100-107): samples are
-    action sequences. Needs the action-conditioned model, not yet ported."""
+    """Action-conditioned variant (cem_simulator.py:100-107): the samples
+    are action sequences [b, T, action_dim], fed to the model as
+    `inputs.actions` with a pad mask of ones; no latent is injected."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ActCondGCPImageSimulator needs the action-conditioned model, "
-            "which is not ported (ROADMAP.md queue 1, item 10)")
+    def _prep_inputs(self, state, goal_state, samples, rollout_len):
+        inputs = super()._prep_inputs(state, goal_state, samples, rollout_len)
+        inputs.actions = inputs.pop("z")
+        inputs.pad_mask = torch.ones(inputs.actions.shape[:2], device=self.device)
+        return inputs

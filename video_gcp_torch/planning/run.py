@@ -10,11 +10,14 @@ processes, and runs `run_trajectories` per worker.
 Usage:
     python -m video_gcp_torch.planning.run <mod_hyper.py> [--device cuda|cpu]
         [--nworkers N] [--gpu_id G] [--ngpu K] [--start_idx A] [--end_idx B]
-        [--resume_from IDX] [--iex I]
+        [--resume_from IDX] [--iex I] [--seed S]
 
 Planners run on the card unless `--device cpu` is given; without a card a
 'cuda' run raises. Workers are spawned (CUDA cannot be re-initialised in a
 forked child); worker i plans on cuda:{(G + i % K) % device count}.
+Each worker reseeds numpy's global generator, from fresh entropy as the
+reference does, or with S + i under `--seed S` (data generation and
+planning that repeat run for run).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from video_gcp_torch.training.config import _ConfigImporter, _experiments_root
 
 def bench_worker(conf, iex=-1, ngpu=1):
     """One worker's trajectory loop (run.py:16-22)."""
-    np.random.seed(None)  # reseed per worker
+    np.random.seed(conf.get("seed"))  # reseed per worker; None: fresh entropy
     run_trajectories(conf, iex, gpu_id=conf.get("gpu_id", 0), ngpu=ngpu)
 
 
@@ -72,6 +75,9 @@ class ControlManager:
         parser.add_argument("--resume_from", type=int, default=None)
         parser.add_argument("--iex", type=int, default=-1,
                             help="run only this example index")
+        parser.add_argument("--seed", type=int, default=None,
+                            help="seed of worker 0's np.random (worker i: seed + i); "
+                                 "fresh entropy by default")
         self.args = parser.parse_args(args)
 
     def run(self):
@@ -101,7 +107,7 @@ class ControlManager:
             start = args.resume_from
 
         if args.nworkers == 1:
-            conf.update(start_index=start, end_index=end, gpu_id=args.gpu_id,
+            conf.update(start_index=start, end_index=end, gpu_id=args.gpu_id, seed=args.seed,
                         device=worker_device(args.device, args.gpu_id, args.ngpu, 0))
             bench_worker(conf, args.iex, args.ngpu)
         else:
@@ -113,6 +119,7 @@ class ControlManager:
                 modconf["start_index"] = start + i * per
                 modconf["end_index"] = min(start + (i + 1) * per - 1, end)
                 modconf["gpu_id"] = i + args.gpu_id
+                modconf["seed"] = None if args.seed is None else args.seed + i
                 modconf["device"] = worker_device(args.device, args.gpu_id,
                                                   args.ngpu, i)
                 confs.append(modconf)

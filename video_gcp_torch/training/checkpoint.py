@@ -14,7 +14,9 @@ layout by the kind of their flax module:
 - Dense `kernel [in, out]` -> Linear `weight [out, in]`.
 - Conv `kernel [kh, kw, in, out]` -> Conv2d `weight [out, in, kh, kw]`;
   1-D `[k, in, out]` -> Conv1d `[out, in, k]`. 'SAME' with k=4, s=2 on even
-  sizes, and with k=3, s=1, is `padding=1`.
+  sizes, and with k=3, s=1, is `padding=1`. A kernel of rank 3 or more is
+  a conv's whatever the module's name: flax's ConvLSTMCell names its convs
+  `ih`/`hh`, the conv tree fusion `proj_i`.
 - ConvTranspose `kernel [kh, kw, in, out]` (transpose_kernel=False, k=4, s=2,
   'SAME') -> ConvTranspose2d `weight [in, out, kh, kw]` with the kernel
   flipped in H and W, `padding=1`. Flax applies the kernel unflipped to the
@@ -93,7 +95,9 @@ def _leaf(kind: str, name: str, a: np.ndarray):
         return name, a
     if kind == "ConvTranspose":
         return "weight", a[::-1, ::-1].transpose(2, 3, 0, 1)
-    if kind == "Conv":
+    if a.ndim > 2:
+        # a conv by its rank, whatever its name (Conv_k, and the explicitly
+        # named ConvLSTMCell ih/hh and tree fusion proj_i):
         # [*spatial, in, out] -> [out, in, *spatial]
         return "weight", a.transpose((a.ndim - 1, a.ndim - 2) + tuple(range(a.ndim - 2)))
     return "weight", a.T  # Dense / proj

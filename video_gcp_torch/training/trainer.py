@@ -53,6 +53,7 @@ from video_gcp_torch.evaluation.eval_binding import dense_sample
 from video_gcp_torch.evaluation.eval_logger import TBEvalLogger
 from video_gcp_torch.evaluation.evaluator import PRIOR_INPUTS, Evaluator
 from video_gcp_torch.load import set_float32_precision
+from video_gcp_torch.models.bc import BCModel
 from video_gcp_torch.parallel.train_step import make_optimizer, make_val_step, train_step
 from video_gcp_torch.training import checkpoint as ckpt
 from video_gcp_torch.training.config import (
@@ -381,6 +382,8 @@ class ModelTrainer:
         trainer.py:488-516): a tree's nodes warped onto the GT timeline by
         DTW, the sequential model's rollout as it is. The sample's image
         logging (_log_val_images) waits for ROADMAP item 13."""
+        if isinstance(self.model, BCModel):
+            return  # no frames to score (the JAX trainer's _dense_prediction is None)
         batch = AttrDict(batch)
         batch.traj_seq = to_float_images(batch.traj_seq)
         out = self.model(AttrDict({k: batch[k] for k in PRIOR_INPUTS if k in batch}),
