@@ -16,7 +16,10 @@ Run from the root of the repository, with no arguments:
    and at the CEM batch of 100 candidates, the train step's encoder on its
    1,600 frames, in f32 and bf16, 9room/gcp_sequential's decoder on its
    1,584 frames (16 x 99) in f32, VMPC's simulator call (encoder on 50
-   candidates, decoder on 50 x 99 frames), plus the largest shape of the
+   candidates, decoder on 50 x 99 frames), the dist phase's f32 shapes
+   (dist_kernel_shapes: the rows each rank of its training runs holds, the
+   25-room flagship's 16 x 200 frames and 16 x 255 nodes among them at one
+   card, and the split plan call's chunks), plus the largest shape of the
    repo, [16352, 64, 64, 16] bf16. Prints per shape the kernel's time (CUDA
    events, median of 25), its own device time (torch.profiler, 10 calls,
    one profiler session over every shape, as in the K2 phase),
@@ -31,7 +34,8 @@ Run from the root of the repository, with no arguments:
    at B=16, T=100 (encoder on 1600 frames and on the 16 start and goal
    frames, decoder on 2032 nodes) in f32 and in bf16, at the 5 decoder
    shapes of 9room/gcp_sequential's train step (1,584 frames) in f32, and
-   at the two largest of bench.py's train step in bf16. Inputs are moved
+   at the two largest of bench.py's train step in bf16, and at the dist
+   phase's training shapes in f32 (dist_kernel_shapes). Inputs are moved
    clear of LeakyReLU's kink (fused_gn.clear_of_kink) so that both sign
    tests agree. Prints the same columns and the sums over a train step's
    20 K2 sites in each dtype (and over gcp_sequential's 20 in f32); the
@@ -168,6 +172,30 @@ Run from the root of the repository, with no arguments:
    candidates per simulator call, env steps/s and the (meaningless)
    success rate of each task.
 
+13. Dist phase: prints torch.cuda.device_count(). (a) `torchrun
+   --standalone --nproc_per_node=W` over NCCL, W = min(cards, 4), of this
+   script as the trainer's ranks (--dist-rank trainer): ModelTrainer on
+   9room/gcp_tree from ep74 (--feed_random_data 1, its random sequences
+   cut to 32: 4 steps of the global B=16, T=100), each rank's launch counts reset
+   before the run: 20 K1 and 20 K2 a step on every rank, finite losses and
+   gradients, one parameter checksum on every rank (an all_reduce of its
+   min and max); prints the warm ms per step and training frames/s. (b)
+   One data-parallel step of ep74 on 2 ranks (--dist-rank steps, started
+   with torchrun's environment beside (a), whose end they wait for before
+   any work on the card; they share the card over gloo when there is one,
+   else one card each over NCCL), each on its rows of the first batch with the whole batch's
+   noise and K1 branches (SharedNoise, SharedSigns), against the
+   single-process step on the whole batch (TOLS_TRAIN). (c) On the same
+   ranks, two dp x fsdp steps of the 25-room flagship from its
+   initialisation (experiments/prediction/25room/gcp_tree: untied, L=8,
+   512x3 split_linear TreeLSTM, T=200, B=16; a (data, model) mesh of
+   (ranks / 2, 2)): 20 K1 and 20 K2 a step on every rank, finite values;
+   prints the peak device memory per rank and the split parameter count.
+   (d) A plan call of 100 candidates through GCPSimulator split over the
+   cards (["cuda:0", "cuda:0"] on one) against the unsplit call on the
+   same inputs: the same lengths, outputs within TOLS_SLICE, 15 K1 a chunk.
+   The ranks build no kernel: this process built them.
+
 Prints the seconds of each phase, the per-path sums and the kernels' JSON
 lines, the card's name and power limit, and as its last line {"ok": true,
 "device": {...}}. Any failure exits non-zero with no result line, as does
@@ -197,6 +225,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_STARTED = time.time()  # this process's start, for the dist ranks' time line
 ROOT = Path(__file__).resolve().parent
 CONF = ROOT / "experiments/prediction/9room/gcp_tree"
 WEIGHTS = CONF / "pretrained_ep74.npz"
@@ -287,6 +316,16 @@ K1_COMPARED = [((n, 32, 32, 16), "float32") for n in (
     CEM_BATCH * N_NODES, ROLLOUT_BATCH * N_NODES, CONTROL_CANDIDATES[0] * N_NODES,
     SEQ_DEC_BATCH, VMPC_CANDIDATES * (TRAIN_T - 1))] + [((32 * 511, 64, 64, 16), "bfloat16")]
 TOL_ACTION = 1e-4  # one closed-loop action, card vs CPU (tests/test_torch_planning.py)
+# the dist phase: torchrun of the trainer over NCCL on up to 4 cards
+# (9room/gcp_tree with ep74, 4 steps: 32 random sequences x
+# epoch_cycles_train 2 / B=16); one data-parallel step and one dp x fsdp
+# step of the 25-room flagship (untied, L=8, 512x3 split_linear TreeLSTM,
+# T=200) on 2 ranks, which share the card over gloo when there is one; a
+# plan call of 100 candidates split over the cards
+DIST_MAX_CARDS, DIST_STEPS = 4, 4
+FLAGSHIP_CONF = ROOT / "experiments/prediction/25room/gcp_tree"
+FLAGSHIP_T, FLAGSHIP_NODES = 200, 2 ** 8 - 1  # its max_seq_len; L=8
+DIST_TIMEOUT_S = 300  # each launch of ranks
 # the h5 phase: nav_9rooms from the PRM expert (T=100, 128x128 frames, one
 # trajectory a file); the global split 0.994 / 0.006 keeps 39 of 40 files
 # for training (4 batches of 16 an epoch at epoch_cycles_train 2) and 1 for val
@@ -473,6 +512,25 @@ def bound(shape, itemsize):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def dist_kernel_shapes(torch):
+    """The f32 K1 and K2 shapes of the dist phase, which follow the number
+    of cards (dist_layout): the rows per rank of (a) the trainer, (b) the
+    data-parallel step and (c) the flagship's dp x fsdp step, each at its
+    encoder's sequence (rows x T), I_0 and I_g (rows) and decoder (rows x
+    nodes) sites; K1 also at (d)'s split plan call, per chunk. Returns the
+    K1 shapes and the K2 (training) shapes."""
+    cards, trainer_w, steps_w, _ = dist_layout(torch)
+    chunk = -(-CEM_BATCH // (min(cards, DIST_MAX_CARDS) if cards > 1 else 2))
+    train = set()
+    for rows, t, nodes in ((TRAIN_B // trainer_w, TRAIN_T, N_NODES),
+                           (TRAIN_B // steps_w, TRAIN_T, N_NODES),
+                           (TRAIN_B // (steps_w // 2), FLAGSHIP_T, FLAGSHIP_NODES)):
+        train |= {(n,) + s for n in (rows * t, rows) for s in ENC_SITES}
+        train |= {(rows * nodes,) + s for s in DEC_SITES}
+    plan = {(chunk,) + s for s in ENC_SITES} | {(chunk * N_NODES,) + s for s in DEC_SITES}
+    return sorted(train | plan), sorted(train)
+
+
 def kernel_phase(torch, F, fused_gn, parent=None):
     cases = []
     for batch in (ROLLOUT_BATCH, CEM_BATCH, TRAIN_B * TRAIN_T):
@@ -489,6 +547,8 @@ def kernel_phase(torch, F, fused_gn, parent=None):
     # their T - 1 frames each
     cases += [((VMPC_CANDIDATES,) + s, "float32") for s in ENC_SITES]
     cases += [((VMPC_CANDIDATES * (TRAIN_T - 1),) + s, "float32") for s in DEC_SITES]
+    cases += [(s, "float32") for s in dist_kernel_shapes(torch)[0]
+              if (s, "float32") not in cases]  # the dist phase's ranks and chunks
     groups = 8
 
     def inputs(gen, shape, dtype):
@@ -583,8 +643,11 @@ def bwd_bound(shape, itemsize):
 
 
 def k2_phase(torch, F, fused_gn, parent=None):
-    """K2 against its twin, and its times, at the training shapes."""
+    """K2 against its twin, and its times, at the training shapes (the
+    dist phase's ranks' among them)."""
     groups = 8
+    shapes = K2_SHAPES + [(s, "float32") for s in dist_kernel_shapes(torch)[1]
+                          if (s, "float32") not in K2_SHAPES]
 
     def inputs(gen, shape, dtype):
         dt, c = getattr(torch, dtype), shape[-1]
@@ -596,13 +659,13 @@ def k2_phase(torch, F, fused_gn, parent=None):
 
     def calls():  # the same inputs again, for the device times
         gen = torch.Generator("cuda").manual_seed(1)
-        for shape, dtype in K2_SHAPES:
+        for shape, dtype in shapes:
             x, dy, scale, bias = inputs(gen, shape, dtype)
             yield lambda: fused_gn.gn_lrelu_bwd(x, dy, scale, bias, groups)
 
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
-    for shape, dtype in K2_SHAPES:
+    for shape, dtype in shapes:
         dt = getattr(torch, dtype)
         x, dy, scale, bias = inputs(gen, shape, dtype)
         got = fused_gn.gn_lrelu_bwd(x, dy, scale, bias, groups)
@@ -643,7 +706,7 @@ def k2_phase(torch, F, fused_gn, parent=None):
         del x, dy, xl, wl, bl, yl, dyl
         torch.cuda.empty_cache()
     if not parent:
-        for row, ms in zip(rows, device_ms_each(torch, calls, len(K2_SHAPES), K2_TAGS)):
+        for row, ms in zip(rows, device_ms_each(torch, calls, len(shapes), K2_TAGS)):
             row["device_ms"] = ms
     print("K2 gn_lrelu_bwd: shape dtype | ms device_ms plain_ms library_ms bound_ms | "
           "host_us | max err dx dscale dbias (relative to max(1, |ref|))"
@@ -1082,26 +1145,39 @@ def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader,
     return launches
 
 
+def rank_rows(a, rows):
+    """Block `rows` = (rank, n) of `a`'s leading axis: a data-parallel
+    rank's share of a draw or a K1 site, all of which lead with the batch
+    (frames and nodes b-major). None: all of `a`."""
+    if rows is None:
+        return a
+    per = a.shape[0] // rows[1]
+    return a[rows[0] * per:(rows[0] + 1) * per]
+
+
 class SharedNoise:
     """Seeded numpy draws in place of the train path's random draws
     (Gaussian.sample and distributions.uniform), recorded on the first run
     and replayed in call order on the next, so the card and the CPU see the
-    same noise."""
+    same noise; with `rows`, a data-parallel rank replays its rows of the
+    whole batch's draws."""
 
-    def __init__(self, torch, distributions):
+    def __init__(self, torch, distributions, draws=None, rows=None):
         self.torch, self.dist = torch, distributions
         self.rng = np.random.RandomState(0)
-        self.draws = {"normal": [], "uniform": []}
+        self.draws = draws or {"normal": [], "uniform": []}
+        self.rows = rows
 
     def take(self, kind, shape, device):
         queue, i = self.draws[kind], self.pos[kind]
         if i == len(queue):
             make = self.rng.randn if kind == "normal" else self.rng.rand
             queue.append(make(*shape).astype(np.float32))
-        if queue[i].shape != tuple(shape):
-            fail(f"noise draw {kind} {i}: shape {tuple(shape)}, recorded {queue[i].shape}")
+        draw = rank_rows(queue[i], self.rows)
+        if draw.shape != tuple(shape):
+            fail(f"noise draw {kind} {i}: shape {tuple(shape)}, recorded {draw.shape}")
         self.pos[kind] += 1
-        return self.torch.from_numpy(queue[i]).to(device)
+        return self.torch.from_numpy(np.ascontiguousarray(draw)).to(device)
 
     def run(self, fn):
         Gaussian, saved = self.dist.Gaussian, (self.dist.Gaussian.sample, self.dist.uniform)
@@ -1127,10 +1203,10 @@ class SharedSigns:
     Counts the elements whose branch the CPU's own rounding would have
     chosen otherwise."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, masks=None, rows=None):
         from video_gcp_torch.models import nets
         self.torch, self.nets = torch, nets
-        self.masks, self.flips = [], 0
+        self.masks, self.flips, self.rows = masks or [], 0, rows
 
     def run(self, fn, record):
         torch, real, pos = self.torch, self.nets.fused_group_norm_lrelu, [0]
@@ -1142,11 +1218,11 @@ class SharedSigns:
 
         def imposed(x, scale, bias, groups, eps=1e-6, slope=0.2):
             pre = real(x, scale, bias, groups, eps, 1.0)  # the norm, no activation
-            mask = self.masks[pos[0]]
+            mask = rank_rows(self.masks[pos[0]], self.rows).to(pre.device)
             pos[0] += 1
             if mask.shape != pre.shape:
-                fail(f"K1 site {pos[0]}: {tuple(pre.shape)} on the CPU, "
-                     f"{tuple(mask.shape)} on the card")
+                fail(f"K1 site {pos[0]}: {tuple(pre.shape)} replayed, "
+                     f"{tuple(mask.shape)} recorded")
             self.flips += int((mask != (pre >= 0)).sum())
             return torch.where(mask, pre, slope * pre)
 
@@ -1156,7 +1232,7 @@ class SharedSigns:
         finally:
             self.nets.fused_group_norm_lrelu = real
             if not record and pos[0] != len(self.masks):
-                fail(f"{pos[0]} K1 sites on the CPU, {len(self.masks)} on the card")
+                fail(f"{pos[0]} K1 sites replayed, {len(self.masks)} recorded")
 
 
 def run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer):
@@ -2079,6 +2155,391 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
           + json.dumps(launches))
     return launches
 
+# ---------------------------------------------------------------------------
+# the dist phase: multi-GPU training and candidate-sharded planning
+# ---------------------------------------------------------------------------
+
+def dist_layout(torch):
+    """(cards, trainer ranks, step ranks, the step ranks' backend)."""
+    cards = torch.cuda.device_count()
+    trainer_w = min(cards, DIST_MAX_CARDS)
+    steps_w = max(2, 2 * (trainer_w // 2))
+    return cards, trainer_w, steps_w, "nccl" if steps_w <= cards else "gloo"
+
+
+class Ranks:
+    """chip_smoke.py --dist-rank `mode` on n ranks, each in a session of
+    its own so that `stop` ends every process: under `torchrun --standalone`
+    (the trainer, as a user launches it), or started here with the
+    environment torchrun gives its ranks (the steps: torchrun's agent
+    costs ~8 s a launch)."""
+
+    def __init__(self, n, mode, workdir, torchrun):
+        self.n, self.mode, self.workdir = n, mode, workdir
+        self.log = workdir / f"{mode}.log"
+        script = [str(ROOT / "chip_smoke.py"), "--dist-rank", mode, "--dist-dir", str(workdir)]
+        env = dict(os.environ, GCP_EXP_DIR=str(EXP_DIR / "dist"), OMP_NUM_THREADS="2")
+        if torchrun:
+            cmds = [([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                      f"--nproc_per_node={n}"] + script, env)]
+        else:
+            import socket
+            with socket.socket() as sock:  # a free port on this host
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            cmds = [([sys.executable] + script,
+                     dict(env, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n),
+                          LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))) for r in range(n)]
+        self.t0, self.launched = time.perf_counter(), time.time()
+        with open(self.log, "w") as out:
+            self.procs = [subprocess.Popen(cmd, cwd=ROOT, env=e, stdout=out,
+                                           stderr=subprocess.STDOUT, start_new_session=True)
+                          for cmd, e in cmds]
+
+    def stop(self):
+        import signal
+        for proc in self.procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+    def results(self, tag):
+        """Each rank's JSON and the launch's wall seconds; the first process
+        to fail, or the time limit, stops them all."""
+        deadline = time.perf_counter() + DIST_TIMEOUT_S
+        while any(p.poll() is None for p in self.procs) and not any(
+                p.poll() for p in self.procs) and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        rcs = [p.poll() for p in self.procs]
+        self.stop()
+        wall = time.perf_counter() - self.t0
+        if any(rc != 0 for rc in rcs):
+            print(self.log.read_text()[-12000:], file=sys.stderr)
+            fail(f"{tag}: {self.n} ranks ended with {rcs} (None: stopped at the "
+                 f"{DIST_TIMEOUT_S} s limit or after another rank failed)")
+        ranks = [json.loads((self.workdir / f"{self.mode}_rank{r}.json").read_text())
+                 for r in range(self.n)]
+        print(f"{tag}: seconds from the launch, rank 0: " + json.dumps(
+            {k: round(v - self.launched, 2) for k, v in ranks[0]["marks"].items()}))
+        return ranks, wall
+
+
+def _rank_json(workdir, mode, rank, out):
+    (workdir / f"{mode}_rank{rank}.json").write_text(json.dumps(out))
+
+
+def _checksums(torch, model, mesh=None):
+    """The min and max over the ranks of the sum of every parameter in
+    float64: equal when every rank holds the same weights. A split
+    parameter adds its shards' sums over the 'model' axis (gathering whole
+    tensors through DTensor's collectives crashes over gloo on the card)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    dev = torch.cuda.current_device()
+    whole = sum(p.detach().double().sum() for p in model.parameters()
+                if not isinstance(p, DTensor)).reshape(1).to(dev)
+    shards = sum((p.to_local().detach().double().sum() for p in model.parameters()
+                  if isinstance(p, DTensor)), torch.zeros((), device=dev)).reshape(1)
+    if mesh is not None and "model" in (mesh.mesh_dim_names or ()):
+        dist.all_reduce(shards, group=mesh.get_group("model"))
+    total = whole + shards
+    lo, hi = total.clone(), total.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    return float(lo), float(hi)
+
+
+def rank_trainer(torch, fused_gn, soft_dtw, workdir):
+    """(a) on one rank of torchrun: the trainer of 9room/gcp_tree from ep74
+    over NCCL, DIST_STEPS steps, each step's launches counted on this rank."""
+    import torch.distributed as dist
+    from video_gcp_torch.training import trainer as trainer_mod
+    args = trainer_mod.parse_args([
+        "--path", str(CONF), "--resume", str(WEIGHTS), "--feed_random_data", "1",
+        "--num_epochs", "1", "--skip_first_val", "1", "--deterministic", "1",
+        "--verbose_timing", "1"])
+    marks = dict(started=T_STARTED, main=time.time())
+    trainer = trainer_mod.ModelTrainer(args)
+    loader = trainer.train_loader
+    loader.dataset.n_seqs = DIST_STEPS * TRAIN_B // loader.n_repeat
+    marks["trainer_built"] = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    steps, _, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
+    marks["trained"] = time.time()
+    lo, hi = _checksums(torch, trainer.model)
+    _rank_json(workdir, "trainer", trainer.dist.rank, dict(
+        world=trainer.dist.world_size, backend=dist.get_backend(),
+        device=str(trainer.device), card=torch.cuda.get_device_name(trainer.device),
+        per_step=[list(s[:3]) for s in steps], launches=list(launches),
+        totals=[float(s[3]["total"]) for s in steps],
+        finite=[bool(s[3]["grads_finite"]) and all(bool(torch.isfinite(v).all())
+                                                     for v in s[3].values()) for s in steps],
+        step_seconds=trainer.step_seconds, checksum=[lo, hi], marks=marks,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+    dist.destroy_process_group()
+
+
+def _flagship(torch):
+    from video_gcp_torch.data.datasets import RandomVideoDataset
+    from video_gcp_torch.training.config import build_hparams, load_config
+    bundle = load_config(FLAGSHIP_CONF)
+    hp = build_hparams(bundle)
+    data = RandomVideoDataset(None, dict(hp), bundle.data_conf, "train")
+    return bundle, hp, data
+
+
+def rank_steps(torch, fused_gn, soft_dtw, workdir):
+    """(b) and (c) on one rank: one data-parallel step of ep74
+    on this rank's rows of the first batch with the whole batch's noise and
+    K1 branches, then one dp x fsdp step of the 25-room flagship."""
+    import torch.distributed as dist
+    import warnings
+    from video_gcp_torch.core import distributions
+    from video_gcp_torch.core.attrdict import AttrDict
+    from video_gcp_torch.load import load_model
+    from video_gcp_torch.parallel.mesh import axis_rank, batch_rows, init_distributed, make_mesh
+    from video_gcp_torch.parallel.train_step import (
+        broadcast_model, make_optimizer, shard_model, train_step)
+    from torch.distributed.tensor import DTensor
+    warnings.filterwarnings("ignore", message="FSDP2-wrapped module")  # outputs are views
+    marks = dict(started=T_STARTED, main=time.time())
+    spec = torch.load(workdir / "spec.pt", weights_only=False)
+    info = init_distributed("cuda", backend=spec["backend"])
+    rank, world, dev = info.rank, info.world_size, info.device
+    marks["group"] = time.time()
+    # started beside the trainer's run, whose steps are timed: wait for it
+    # to end before any work on the card
+    deadline = time.time() + DIST_TIMEOUT_S
+    while not (workdir / "trainer_done").exists():
+        if time.time() > deadline:
+            fail("dist steps: the trainer's run did not end")
+        time.sleep(0.05)
+    marks["trainer_done"] = time.time()
+    out = dict(world=world, backend=dist.get_backend(), device=str(dev),
+               card=torch.cuda.get_device_name(dev))
+
+    # (b) data parallel, ep74
+    mesh = make_mesh(world, device_type="cuda")
+    model = load_model(CONF, weights=WEIGHTS, device=dev).train()
+    opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam", 2e-4)
+    rows = batch_rows(rank, world, TRAIN_B)
+    batch = AttrDict({k: v[rows].to(dev) for k, v in spec["batch"].items()})
+    noise = SharedNoise(torch, distributions, spec["draws"], (rank, world))
+    signs = SharedSigns(torch, spec["masks"], (rank, world))
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    met = signs.run(lambda: noise.run(lambda: train_step(
+        model, opt, batch, 0, torch.Generator(dev), mesh)), record=False)
+    torch.cuda.synchronize()
+    out["dp"] = dict(rows=[rows.start, rows.stop],
+                     launches=[fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES],
+                     metrics={k: float(v) for k, v in met.items() if v.dim() == 0},
+                     checksum=list(_checksums(torch, model)))
+    if rank == 0:
+        torch.save({n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                    if p.requires_grad}, workdir / "dp_grads.pt")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    marks["dp_step"] = time.time()
+
+    # (c) dp x fsdp, the 25-room flagship from its initialisation
+    bundle, hp, data = _flagship(torch)
+    torch.manual_seed(0)
+    with torch.device(dev):  # initialised on the card: 85M parameters
+        model = bundle.configuration["model"](hp)
+    model.to(memory_format=torch.channels_last)
+    n_params = sum(p.numel() for p in model.parameters())
+    broadcast_model(model)
+    fmesh = make_mesh(world, ("data", "model"), (world // 2, 2), "cuda")
+    shard_model(model, fmesh)
+    opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam", 2e-4)
+    b = hp["batch_size"]
+    rows = batch_rows(axis_rank(fmesh, "data"), world // 2, b)
+    items = [data[i] for i in range(rows.start, rows.stop)]
+    batch = AttrDict({k: torch.from_numpy(np.stack([np.asarray(it[k]) for it in items])).to(dev)
+                      for k in items[0]})
+    gen = torch.Generator(dev).manual_seed(axis_rank(fmesh, "data"))
+    sharded = [p for p in model.parameters() if isinstance(p, DTensor)]
+    local = sum(p.to_local().numel() if isinstance(p, DTensor) else p.numel()
+                for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    t0 = time.perf_counter()
+    met = train_step(model, opt, batch, 0, gen, fmesh)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = [fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES]
+    t0 = time.perf_counter()
+    met2 = train_step(model, opt, batch, 1, gen, fmesh)  # warm
+    torch.cuda.synchronize()
+    marks["fsdp_steps"] = time.time()
+    out["fsdp"] = dict(
+        mesh=[world // 2, 2], rows=[rows.start, rows.stop], launches=launches,
+        metrics={k: float(v) for k, v in met.items() if v.dim() == 0},
+        finite=bool(met["grads_finite"]) and bool(met2["grads_finite"]) and all(
+            bool(torch.isfinite(v).all()) for m in (met, met2) for v in m.values()),
+        params=n_params, sharded_tensors=len(sharded),
+        sharded_params=sum(p.numel() for p in sharded),
+        local_params=local,
+        step_s=[step_s, time.perf_counter() - t0],
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        checksum=list(_checksums(torch, model, fmesh)))
+    out["marks"] = marks
+    _rank_json(workdir, "steps", rank, out)
+    dist.destroy_process_group()
+
+
+def dist_phase(torch, fused_gn, soft_dtw, ep74, load_model, AttrDict, distributions,
+               DataLoader, dataset):
+    """Multi-GPU training and candidate-sharded planning: (a) torchrun of
+    the trainer over NCCL on min(cards, 4) ranks, (b) a data-parallel step
+    against the single-process step on the whole batch, (c) a dp x fsdp step
+    of the 25-room flagship, (d) a 100-candidate plan call split over the
+    cards against the unsplit one. Returns each path's (K1, K2, K3)
+    launches, summed over the ranks."""
+    cards, trainer_w, steps_w, backend = dist_layout(torch)
+    print(f"dist: torch.cuda.device_count() {cards}; the trainer on {trainer_w} rank(s) "
+          f"over nccl, the steps on {steps_w} ranks over {backend}"
+          + (" (two ranks share one card)" if steps_w > cards else ""))
+    workdir = EXP_DIR / "dist_work"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    torch.cuda.empty_cache()  # the ranks are processes of their own on the card
+    launches = {}
+
+    # (b)'s reference: the single-process step on the whole first batch,
+    # recording its noise and K1 branches for the ranks
+    from video_gcp_torch.parallel.train_step import make_optimizer, train_step
+    first = next(iter(DataLoader(dataset, TRAIN_B, shuffle=True, n_repeat=2, num_workers=4)))
+    noise, signs = SharedNoise(torch, distributions), SharedSigns(torch)
+    model = load_model(CONF, weights=WEIGHTS).train()
+    opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam", 2e-4)
+    met = signs.run(lambda: noise.run(lambda: train_step(
+        model, opt, AttrDict({k: v.cuda() for k, v in first.items()}), 0,
+        torch.Generator("cuda"))), record=True)
+    whole = ({k: float(v) for k, v in met.items() if v.dim() == 0},
+             {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.requires_grad})
+    del model, opt
+    torch.cuda.empty_cache()
+    torch.save(dict(backend=backend, batch={k: v.cpu() for k, v in first.items()},
+                    draws=noise.draws, masks=signs.masks), workdir / "spec.pt")
+
+    # (b) and (c) start up (imports, CUDA, the process group) beside (a) and
+    # wait for it to end before any work on the card, as (a)'s steps are timed
+    steps = Ranks(steps_w, "steps", workdir, torchrun=False)
+    try:
+        ranks, wall = Ranks(trainer_w, "trainer", workdir, torchrun=True).results(
+            "dist train")
+        (workdir / "trainer_done").touch()
+        for r, res in enumerate(ranks):
+            got = sorted({tuple(s) for s in res["per_step"]})
+            if got != [(NORMS_PER_STEP, NORMS_PER_STEP, 0)] or len(res["per_step"]) != DIST_STEPS:
+                fail(f"dist train: rank {r} K1/K2/K3 launches per step {res['per_step']}")
+            if not all(res["finite"]) or not all(np.isfinite(res["totals"])):
+                fail(f"dist train: rank {r} non-finite losses or gradients {res['totals']}")
+            if res["checksum"][0] != res["checksum"][1]:
+                fail(f"dist train: the ranks' parameters differ, checksums {res['checksum']}")
+            print(f"dist train: rank {r} of {res['world']} ({res['backend']}, {res['device']}, "
+                  f"{res['card']}): K1/K2/K3 per step {got[0]}, totals "
+                  f"{[round(t, 5) for t in res['totals']]}, peak {res['peak_gib']:.3f} GiB")
+        warm = statistics.median(max(r["step_seconds"][i] for r in ranks)
+                                 for i in range(1, DIST_STEPS))
+        print(f"dist train: 9room/gcp_tree from ep74, {DIST_STEPS} steps of the global "
+              f"B={TRAIN_B} T={TRAIN_T} on {trainer_w} rank(s); warm ms per step (median of "
+              f"steps 1-{DIST_STEPS - 1}, slowest rank) {warm * 1e3:.2f}; training frames/s "
+              f"{TRAIN_B * TRAIN_T / warm:.1f}; parameter checksum {ranks[0]['checksum'][0]!r} "
+              f"on every rank; torchrun wall {wall:.1f} s")
+        launches["dist_train"] = tuple(sum(r["launches"][i] for r in ranks) for i in range(3))
+        ranks, wall = steps.results("dist steps")
+    finally:
+        steps.stop()  # a no-op once they ended
+    dp_grads = torch.load(workdir / "dp_grads.pt", weights_only=True)
+    for r, res in enumerate(ranks):
+        for part, per_step in (("dp", (NORMS_PER_STEP, NORMS_PER_STEP, 0)),
+                               ("fsdp", (NORMS_PER_STEP, NORMS_PER_STEP, 0))):
+            if tuple(res[part]["launches"]) != per_step:
+                fail(f"dist {part}: rank {r} K1/K2/K3 launches {res[part]['launches']}")
+            if res[part]["checksum"][0] != res[part]["checksum"][1]:
+                fail(f"dist {part}: the ranks' parameters differ {res[part]['checksum']}")
+        if not res["fsdp"]["finite"]:
+            fail(f"dist fsdp: rank {r} non-finite losses or gradients")
+    dp = ranks[0]["dp"]
+    loss_d = {k: abs(dp["metrics"][k] - v) / max(1.0, abs(v)) for k, v in whole[0].items()
+              if k not in ("grads_finite", "grad_norm")}
+    grad_d = {n: (dp_grads[n] - g).abs().max().item() / max(1e-3, g.abs().max().item())
+              for n, g in whole[1].items()}
+    worst = max(grad_d, key=grad_d.get)
+    norm_d = abs(dp["metrics"]["grad_norm"] - whole[0]["grad_norm"]) / whole[0]["grad_norm"]
+    if (max(loss_d.values()) >= TOLS_TRAIN["loss"] or grad_d[worst] >= TOLS_TRAIN["grad"]
+            or norm_d >= TOLS_TRAIN["grad"]):
+        fail(f"dist dp: {steps_w} ranks vs one process: losses {loss_d}, worst gradient "
+             f"{worst} {grad_d[worst]}, grad_norm {norm_d}")
+    print(f"dist dp: {steps_w} ranks over {ranks[0]['backend']} "
+          f"({', '.join(r['device'] for r in ranks)}), rows "
+          f"{[r['dp']['rows'] for r in ranks]} of the first batch (B={TRAIN_B}, T={TRAIN_T}), "
+          f"the whole batch's noise and K1 branches; against the single-process step on "
+          f"the whole batch: losses (relative) max {max(loss_d.values()):.3e}, gradients of "
+          f"{len(grad_d)} tensors worst {grad_d[worst]:.3e} ({worst}), grad_norm "
+          f"{norm_d:.3e} (TOLS_TRAIN {TOLS_TRAIN}); K1/K2/K3 per rank {tuple(dp['launches'])}")
+    fs = ranks[0]["fsdp"]
+    print(f"dist fsdp: 25room/gcp_tree (flagship, {fs['params']} params) on a (data, model) "
+          f"mesh {tuple(fs['mesh'])} of {steps_w} ranks over {ranks[0]['backend']}: "
+          f"{fs['sharded_tensors']} tensors ({fs['sharded_params']} params) split over "
+          f"'model', {fs['local_params']} params held by each rank; total "
+          f"{fs['metrics']['total']:.5f}, grad_norm {fs['metrics']['grad_norm']:.5f}; step "
+          f"{fs['step_s'][0] * 1e3:.1f} ms cold, {fs['step_s'][1] * 1e3:.1f} ms warm; peak "
+          f"device memory per rank {[round(r['fsdp']['peak_gib'], 3) for r in ranks]} GiB; "
+          f"K1/K2/K3 per rank {tuple(fs['launches'])}; the launch's wall {wall:.1f} s")
+    launches["dist_dp_step"] = tuple(sum(r["dp"]["launches"][i] for r in ranks) for i in range(3))
+    launches["dist_fsdp_step"] = tuple(sum(r["fsdp"]["launches"][i] for r in ranks)
+                                       for i in range(3))
+
+    # (d) a plan call of 100 candidates split over the cards
+    from video_gcp_torch.planning.cem.simulator import GCPImageSimulator
+    devices = ([f"cuda:{i}" for i in range(min(cards, DIST_MAX_CARDS))] if cards > 1
+               else ["cuda:0", "cuda:0"])
+    unsplit = GCPImageSimulator(ep74, append_latent=True)
+    split = GCPImageSimulator(ep74, append_latent=True, devices=devices)
+    rng = np.random.RandomState(SEED)
+    state = rng.randint(0, 256, (1, 32, 32, 3)).astype(np.uint8)
+    goal = rng.randint(0, 256, (1, 32, 32, 3)).astype(np.uint8)
+    z = rng.randn(CEM_BATCH, N_NODES, 256).astype(np.float32)
+    inputs = unsplit._prep_inputs(state, goal, z, TRAIN_T)
+    times = {}
+    for name, sim in (("unsplit", unsplit), ("split", split), ("unsplit", unsplit),
+                      ("split", split)):
+        fused_gn.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run_model(inputs)
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        times[name + "_k1"] = fused_gn.LAUNCHES
+        if name == "unsplit":
+            want = res
+        else:
+            got = res
+    if times["split_k1"] != K1_PER_SIM_CALL * len(devices) or times["unsplit_k1"] != 15:
+        fail(f"dist plan: K1 launches {times['unsplit_k1']} unsplit, {times['split_k1']} split")
+    if not np.array_equal(got.end_ind, want.end_ind):
+        fail("dist plan: the split call drew other lengths than the unsplit one")
+    diffs = {k: float(np.abs(got[k] - want[k]).max()) for k in
+             ("timeline_images", "timeline_latents", "actions", "regressed_state")}
+    bad = {k: v for k, v in diffs.items() if not v < TOLS_SLICE[k]}
+    if bad or not all(np.isfinite(got[k]).all() for k in diffs):
+        fail(f"dist plan: split vs unsplit {diffs} (TOLS_SLICE)")
+    print(f"dist plan: {CEM_BATCH} candidates split over {devices} (pad bucket "
+          f"{split._pad_bucket}) against one call: max abs diff "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()})
+          + f" (TOLS_SLICE), the same {len(set(got.end_ind.tolist()))} distinct lengths; "
+          f"ms per call (cold, warm) unsplit {[round(t, 2) for t in times['unsplit']]}, "
+          f"split {[round(t, 2) for t in times['split']]}; K1 launches {times['split_k1']} "
+          f"split, {times['unsplit_k1']} unsplit")
+    launches["dist_plan_split"] = (times["split_k1"], 0, 0)
+    for d in (workdir, EXP_DIR / "dist"):  # the trainer's checkpoint among them
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
 
 def main():
     import argparse
@@ -2087,6 +2548,11 @@ def main():
                     "whose K1, K2 and K3 are timed in turns with this one's")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the K1, K2 and K3 phases (no result line)")
+    # the dist phase's ranks (Ranks)
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build, then run only the dist phase (no result line)")
+    ap.add_argument("--dist-rank", choices=("trainer", "steps"), help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -2113,6 +2579,12 @@ def main():
     # or OpenCV: stand-ins that fail on import keep it so
     sys.modules["h5py"] = sys.modules["cv2"] = None
     set_float32_precision()
+    if args.dist_rank:
+        import faulthandler
+        faulthandler.enable()  # a crash in a collective shows its Python stack
+        {"trainer": rank_trainer, "steps": rank_steps}[args.dist_rank](
+            torch, fused_gn, soft_dtw, Path(args.dist_dir))
+        return
     start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -2137,6 +2609,18 @@ def main():
     for source in (fused_gn.SOURCE, soft_dtw.SOURCE):
         print(cuda_build.BUILD_LOGS.get(source, "").strip())
 
+    if args.dist_only:
+        from video_gcp_torch.data.datasets import RandomVideoDataset
+        from video_gcp_torch.training.config import build_hparams, load_config
+        bundle = load_config(CONF)
+        dataset = RandomVideoDataset(None, dict(build_hparams(bundle)), bundle.data_conf,
+                                     "train", dataset_size=64)
+        timed_phase("dist", dist_phase, torch, fused_gn, soft_dtw,
+                    load_model(CONF, weights=WEIGHTS), load_model, AttrDict, distributions,
+                    DataLoader, dataset)
+        print(f"seconds per phase: {json.dumps(phase_s)}")
+        print(gpu_name_and_power_limit())
+        return
     parent = parent_k3 = None
     if args.parent:
         with ThreadPoolExecutor(2) as pool:
@@ -2198,6 +2682,9 @@ def main():
     eval_k1 = timed_phase("eval", eval_phase, torch, fused_gn, soft_dtw, model, cpu_model,
                           trainer.val_loader.dataset, DataLoader, AttrDict)
     plan_k1 = timed_phase("plan", plan_phase, torch, fused_gn, soft_dtw, AttrDict)
+    dist_launches = timed_phase("dist", dist_phase, torch, fused_gn, soft_dtw, model,
+                                load_model, AttrDict, distributions, DataLoader,
+                                trainer.train_loader.dataset)
     print(f"seconds per phase: {json.dumps(phase_s)}; since the start "
           f"{time.perf_counter() - start:.1f} s")
 
@@ -2216,18 +2703,21 @@ def main():
              dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1,
                   serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1, plan=plan_k1,
                   **{f"h5_train_{n}": v[0] for n, v in h5_launches.items()},
-                  **{k: v[0] for k, v in base_launches.items()})),
+                  **{k: v[0] for k, v in base_launches.items()},
+                  **{k: v[0] for k, v in dist_launches.items()})),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
              dict(serve=0, train=train_k2, train_adaptive=ad_k2, serve_bf16=0,
                   train_bf16=train16_k2, eval=0, plan=0,
                   **{f"h5_train_{n}": v[1] for n, v in h5_launches.items()},
-                  **{k: v[1] for k, v in base_launches.items()})),
+                  **{k: v[1] for k, v in base_launches.items()},
+                  **{k: v[1] for k, v in dist_launches.items()})),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
              dict(serve=0, train=0, train_adaptive=ad_k3, serve_bf16=0, train_bf16=0,
                   eval=0, plan=0, **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()},
-                  **{k: v[2] for k, v in base_launches.items()}),
+                  **{k: v[2] for k, v in base_launches.items()},
+                  **{k: v[2] for k, v in dist_launches.items()}),
              source=soft_dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")

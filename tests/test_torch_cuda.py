@@ -92,6 +92,30 @@ def test_kernel_matches_twin(card, dtype):
             assert (err <= 3e-2 * want.abs().clamp(min=1)).all(), shape
 
 
+def test_kernels_launch_on_every_card(card):
+    """K1, K2 and K3 at shapes whose shared memory passes the 48 KiB default,
+    on each visible card in turn: CUDA sets that limit per device, so a
+    process that launches on a second card sets it there too (the
+    candidate-split planner and one process over several cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        gen = torch.Generator(dev).manual_seed(i)
+        x = torch.randn(6, 32, 32, 16, generator=gen, device=dev) * 3 + 1
+        sc, bi = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+        assert fused_gn.launch_plan(tuple(x.shape), 4, 8, False, True).smem > 48 * 1024
+        y = fused_gn.gn_lrelu_fwd(x, sc, bi, 8)
+        assert (y - fused_gn.gn_lrelu_reference(x, sc, bi, 8)).abs().max().item() < 2e-5
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        dx = fused_gn.gn_lrelu_bwd(x, dy, sc, bi, 8)[0]
+        want = fused_gn.gn_lrelu_bwd_reference(x, dy, sc, bi, 8)[0]
+        assert (dx - want).abs().max().item() < 2e-5 * max(1.0, want.abs().max().item())
+        cost, ends = _dtw_inputs(dev, 2, 511, 500)
+        _dtw_check(sdtw.k3(cost, ends, return_dp=True),
+                   sdtw.soft_dtw_rows_reference(cost, ends, return_dp=True), ends)
+
+
 def test_kernel_rejects_non_nhwc(card):
     x = torch.randn(2, 8, 4, 4, device=card).permute(0, 2, 3, 1)  # NCHW memory
     with pytest.raises(ValueError):

@@ -304,8 +304,16 @@ def test_act_cond_inference_tree_matches_jax(monkeypatch):
 
 
 def test_use_convs_false_still_raises():
-    with pytest.raises(NotImplementedError, match="use_convs"):
-        TorchSeq(_hp(hierarchy_levels=0, use_convs=False))
+    """use_convs=False raised until the state-space models were ported; it
+    builds the MLP encoder and decoder now (held against JAX in
+    tests/test_torch_state_space.py). What still raises with it is a
+    hparam that neither package implements."""
+    from video_gcp_torch.models.base import MLPDecoder, MLPEncoder
+    model = TorchSeq(_hp(hierarchy_levels=0, use_convs=False, input_nc=2))
+    assert isinstance(model.encoder, MLPEncoder) and isinstance(model.decoder, MLPDecoder)
+    assert not model.use_dlm
+    with pytest.raises(NotImplementedError, match="var_inf"):
+        TorchSeq(_hp(hierarchy_levels=0, use_convs=False, var_inf="2layer"))
 
 
 # ---------------------------------------------------------------------------

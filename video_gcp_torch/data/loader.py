@@ -5,6 +5,13 @@ A producer thread assembles numpy batches ahead of time with a thread pool
 the device through pinned memory with `non_blocking=True`, one batch ahead,
 so the copy overlaps the previous step. `n_repeat` passes over the dataset
 make one epoch (blox RepeatedDataLoader).
+
+Under data parallelism (`rows=(rank_in_data, n_data)`) every rank walks the
+same global shuffled order (the seed is shared) and assembles only its
+`mesh.batch_rows` of each global batch, so no rank loads, or re-renders,
+another's examples. A short final batch (drop_last=False) that does not
+split evenly is assembled whole by every rank, as the JAX loader places it
+unsharded: each rank computes the same values on it.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from video_gcp_torch.core.attrdict import AttrDict
+from video_gcp_torch.parallel.mesh import batch_rows
 
 
 def _stack_batch(examples) -> AttrDict:
@@ -44,7 +52,7 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  n_repeat: int = 1, drop_last: bool = True,
                  num_workers: int = 4, seed: int = 0, device="cpu",
-                 prefetch: int = 2):
+                 prefetch: int = 2, rows=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -56,6 +64,7 @@ class DataLoader:
         self.seed = seed
         self.device = torch.device(device)
         self.prefetch = prefetch
+        self.rows = rows  # (rank_in_data, n_data), or None for the whole batch
         self._epoch = 0
 
     def __len__(self):
@@ -70,6 +79,11 @@ class DataLoader:
                 rng.shuffle(idx)
             yield from idx
         self._epoch += 1
+
+    def _own_rows(self, idx):
+        if self.rows is None or len(idx) % self.rows[1]:
+            return idx
+        return idx[batch_rows(self.rows[0], self.rows[1], len(idx))]
 
     def __iter__(self) -> Iterator[AttrDict]:
         stream = self._index_stream()
@@ -99,6 +113,7 @@ class DataLoader:
                         idx = list(itertools.islice(stream, self.batch_size))
                         if len(idx) < self.batch_size and (self.drop_last or not idx):
                             break
+                        idx = self._own_rows(idx)
                         batch = _stack_batch(list(fetch(self.dataset.__getitem__, idx)))
                         if not put_checked(batch):
                             return

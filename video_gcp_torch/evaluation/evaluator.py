@@ -20,9 +20,11 @@ through the eval logger.
 The prior forward reads only the start and goal frames, the end index,
 injected latents `z` if given and the actions, which only an
 action-conditioned model (VMPC) reads: the JAX program also encodes the
-sequence, a value no output uses, which XLA drops. The JAX Evaluator's state-space
-branch (`use_images=False`) serves `use_convs=False` models, which the port
-does not build.
+sequence, a value no output uses, which XLA drops.
+
+`use_images=False` scores a `use_convs=False` model's state vectors
+[B, T, D]: only the per-frame vector MSE, with the same crop and mask, and
+no sequence dumps (JAX evaluator.py:84-96, 221).
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ class Evaluator:
 
     def __init__(self, model, logdir: str, hp, max_seq_len: int,
                  pruning_scheme: str = "dtw", top_of_100: bool = True,
-                 top_comp_metric: str = "mse", eval_logger=None):
+                 top_comp_metric: str = "mse", use_images: bool = True,
+                 eval_logger=None):
         set_float32_precision()  # SSIM's window sums need full float32
         self.model = model
         self._logdir = os.path.join(logdir, "metrics")
@@ -58,6 +61,7 @@ class Evaluator:
         self._top_of = 100 if top_of_100 else 1
         self._metric = top_comp_metric
         self._max_seq_len = max_seq_len
+        self._use_images = use_images
         self.full_evaluation = None
 
     def _eval_sample(self, inputs: AttrDict, generator: torch.Generator):
@@ -72,8 +76,12 @@ class Evaluator:
             valid = ((t_idx >= 1) & (t_idx <= inputs.end_ind[:, None] - 1)
                      & (inputs.pad_mask > 0))
             denom = torch.clamp(valid.sum(1), min=1)
-            m = AttrDict({name: (fn(gen, inputs.traj_seq) * valid).sum(1) / denom
-                          for name, fn in (("mse", mse), ("psnr", psnr), ("ssim", ssim))})
+            if self._use_images:
+                m = AttrDict({name: (fn(gen, inputs.traj_seq) * valid).sum(1) / denom
+                              for name, fn in (("mse", mse), ("psnr", psnr), ("ssim", ssim))})
+            else:  # the image metrics would reduce the batch axis of [B, T, D]
+                err = torch.mean((gen - inputs.traj_seq) ** 2, dim=-1)
+                m = AttrDict(mse=(err * valid).sum(1) / denom)
             full = breadthfirst2depthfirst(out.tree.images) if "tree" in out else gen
             return m, gen, full
 
@@ -125,7 +133,8 @@ class Evaluator:
 
     def dump_results(self, it: int) -> dict:
         summary = self.dump_metrics(it)
-        self.dump_seqs(it)
+        if self._use_images:
+            self.dump_seqs(it)
         self.reset()
         return summary
 

@@ -28,15 +28,21 @@ class LengthPredictor(nn.Module):
                                       hp["nz_mid"], hp["n_processing_layers"])])
 
     def forward(self, e_0: torch.Tensor, e_g: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> AttrDict:
-        """With a generator the length is sampled from the logits, without one
-        it is their argmax (the JAX model's rng=None branch)."""
+                generator: Optional[torch.Generator] = None,
+                u: Optional[torch.Tensor] = None) -> AttrDict:
+        """The length is sampled from the logits by the inverse CDF at
+        uniforms `u` [B], which the caller owns (the CEM simulator's) or
+        which are drawn from `generator`; without either it is their argmax
+        (the JAX model's rng=None branch)."""
         logits = self.mlp[0](e_0, e_g)
-        if generator is None:
+        if u is None and generator is None:
             sampled = torch.argmax(logits, dim=-1)
         else:
-            probs = torch.softmax(logits.float(), dim=-1)
-            sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            if u is None:
+                u = torch.rand(logits.shape[0], generator=generator, device=logits.device)
+            cdf = torch.cumsum(torch.softmax(logits.float(), dim=-1), dim=-1)
+            sampled = torch.searchsorted(cdf, u.to(cdf)[:, None], right=True)[:, 0]
+            sampled = torch.clamp(sampled, max=logits.shape[-1] - 1)
         # predicted length >= 3 for planning (base_gcp.py:223)
         return AttrDict(seq_len_logits=logits,
                         end_ind_pred=torch.clamp(sampled, min=2))

@@ -1,7 +1,12 @@
 """Shared GCP model core (models/base.py of the JAX package): hparam
 validation, module construction, input preprocessing, encoding, length
 prediction, the folded decode, the auxiliary models' training pass and the
-loss assembly."""
+loss assembly.
+
+With `use_convs=False` a model predicts flat state vectors [..., input_nc]
+instead of images: `MLPEncoder` and `MLPDecoder` take the conv pyramids'
+places (no GroupNorm, so no K1 or K2 on that path) and the decoder is
+Gaussian whatever `decoder_distribution` says, as in the JAX package."""
 from __future__ import annotations
 
 from typing import Optional
@@ -25,11 +30,42 @@ from video_gcp_torch.models.aux_models import (
 )
 from video_gcp_torch.models.nets import (
     MLP,
+    Casting,
     ConvDecoder,
     ConvEncoder,
     GaussianLogSigma,
     build_seq_encoder,
 )
+
+
+class MLPEncoder(Casting, nn.Module):
+    """State-space encoder for use_convs=False models: an MLP from the
+    state [B, input_nc] to [B, nz_enc], and no skips."""
+
+    def __init__(self, hp):
+        super().__init__()
+        self.mlp = nn.ModuleList([MLP(hp["input_nc"], hp["nz_enc"], hp["nz_mid"],
+                                      hp["n_processing_layers"])])
+
+    def forward(self, x: torch.Tensor):
+        return self.mlp[0](x), None
+
+
+class MLPDecoder(Casting, nn.Module):
+    """State-space decoder for use_convs=False models: an MLP from a latent
+    [B, nz_enc] to a state [B, input_nc]; skips are ignored."""
+
+    def __init__(self, hp):
+        super().__init__()
+        self.mlp = nn.ModuleList([MLP(hp["nz_enc"], hp["input_nc"], hp["nz_mid"],
+                                      hp["n_processing_layers"])])
+
+    @property
+    def dense(self):  # the first layer, whose dtype is the parameters'
+        return self.mlp[0].dense
+
+    def forward(self, e: torch.Tensor, skips=None) -> torch.Tensor:
+        return self.mlp[0](e)
 
 
 class BaseGCPModel(nn.Module):
@@ -53,10 +89,6 @@ class BaseGCPModel(nn.Module):
         log_cartgripper=False,
         log_d2b_3x3maze=0,
     )
-    # Implemented in the JAX package, not yet in the port (ROADMAP queue 1).
-    _UNPORTED_DEFAULTS = dict(
-        use_convs=True,
-    )
 
     def __init__(self, hp):
         super().__init__()
@@ -72,11 +104,6 @@ class BaseGCPModel(nn.Module):
                     f"hparam {flag}={hp[flag]!r} is declared for config parity "
                     "but not implemented (no published config sets it); keep "
                     f"it at its default {default!r} or pop it from the config")
-        for flag, default in cls._UNPORTED_DEFAULTS.items():
-            if hp.get(flag, default) != default:
-                raise NotImplementedError(
-                    f"hparam {flag}={hp[flag]!r} is not ported to "
-                    "video_gcp_torch yet (see ROADMAP.md queue 1)")
         if hp.get("var_inf", "standard") == "2layer":
             raise NotImplementedError(
                 "var_inf='2layer' (and nz_vae2) is not implemented; use "
@@ -113,16 +140,21 @@ class BaseGCPModel(nn.Module):
 
     def setup_core(self):
         hp = self.hp
-        self.use_dlm = hp.get("decoder_distribution") == "discrete_logistic_mixture"
-        self.encoder = ConvEncoder(hp)
-        if self.use_dlm:
+        use_convs = hp.get("use_convs", True)
+        self.use_dlm = (use_convs and hp.get("decoder_distribution")
+                        == "discrete_logistic_mixture")
+        encoder_cls = ConvEncoder if use_convs else MLPEncoder
+        self.encoder = encoder_cls(hp)
+        if not use_convs:
+            self.decoder = MLPDecoder(hp)
+        elif self.use_dlm:
             self.decoder = ConvDecoder(
                 hp, out_channels=dlm.n_dlm_channels(hp["input_nc"]),
                 tanh_out=False)
         else:
             self.decoder = ConvDecoder(hp)
         if hp.get("separate_cnn_start_goal_encoder", False):
-            self.start_goal_encoder = ConvEncoder(hp)
+            self.start_goal_encoder = encoder_cls(hp)
         self.log_sigma_mod = GaussianLogSigma(hp)
 
         self.inf_encoder = build_seq_encoder(hp)  # may be None
@@ -214,7 +246,8 @@ class BaseGCPModel(nn.Module):
         hp = self.hp
         end_ind = inputs.get("end_ind", None)
         if hp["regress_length"]:
-            outputs.update(self.length_pred(inputs.e_0, inputs.e_g, generator))
+            outputs.update(self.length_pred(inputs.e_0, inputs.e_g, generator,
+                                            inputs.get("seq_len_u")))
             if pred_length and (hp["length_pred_weight"] > 0 or end_ind is None):
                 end_ind = outputs.end_ind_pred
                 if hp["action_conditioned_pred"] or hp["non_goal_conditioned"]:

@@ -64,6 +64,17 @@ def load_planner_weights(model, path) -> list:
     return dropped
 
 
+def planning_mesh_devices(requested, device: torch.device):
+    """The cards a simulator splits its candidates over (JAX
+    planner_policy.py:143-167): n = min(requested, the visible cards),
+    cuda:0 to cuda:n-1, and None (no split) unless n > 1 and the policy
+    runs on the card."""
+    if device.type != "cuda" or not requested:
+        return None
+    n = min(int(requested), torch.cuda.device_count())
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else None
+
+
 class PlannerPolicy(Policy):
     def __init__(self, ag_params, policyparams, gpu_id=None, ngpu=None,
                  conversion_fcns=None, n_rooms=None):
@@ -171,19 +182,19 @@ class CEMPolicy(PlannerPolicy):
         if "cost_config" in cem_params:  # the learned cost runs beside the model
             cem_params["cost_config"] = dict(cem_params["cost_config"],
                                              device=str(self.device))
-        if self._hp.planning_mesh_devices and int(self._hp.planning_mesh_devices) > 1:
-            raise NotImplementedError(
-                "planning_mesh_devices > 1 shards CEM candidates over several "
-                "devices, which is not ported (ROADMAP.md queue 1, item 12)")
-        self._cem_simulator = self.simulator_type(self.planner, append_latent=True)
+        self._cem_simulator = self.simulator_type(
+            self.planner, append_latent=True,
+            devices=planning_mesh_devices(self._hp.planning_mesh_devices, self.device))
         planner_cls = self._hp.cem_planner or self.planner_type
         self._cem_planner = planner_cls(cem_params, self._cem_simulator)
 
     def _default_hparams(self):
         p = super()._default_hparams()
         p.update(dict(cem_planner=None, cem_params={},
-                      # > 1: shard the CEM candidates over this many devices
-                      # (the JAX package's SPMD planning; not ported)
+                      # > 1: split each simulator call's CEM candidates over
+                      # (up to) this many cards, one model replica each (the
+                      # JAX package's SPMD planning; run.py --nworkers splits
+                      # tasks instead)
                       planning_mesh_devices=0))
         return p
 

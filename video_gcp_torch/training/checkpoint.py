@@ -4,7 +4,12 @@ pretrained npz reader, and the flax -> torch bridge.
 
 Training checkpoints live in `{exp_path}/weights/weights_ep{N}/` as one torch
 state file (model, optimizer, step) in place of orbax's directory
-(checkpoint_handler.py:14-184 of the reference).
+(checkpoint_handler.py:14-184 of the reference). The file holds the whole,
+unwrapped model's state dict and the optimizer's in torch's own layout,
+whatever run wrote it: a dp x fsdp run gathers its shards
+(torch.distributed.checkpoint.state_dict) and rank 0 writes them, so a
+checkpoint of a sharded run loads strictly into a single process, and one
+of a single process into a sharded run.
 
 The bridge maps a flax parameter tree onto the port's `state_dict` by one
 naming rule (see models/nets.py): the flax auto-name `Name_k` becomes the
@@ -169,26 +174,110 @@ def resolve_resume(resume, exp_path) -> Optional[str]:
     return os.path.join(weights_dir(exp_path), ckpt_name(epoch))
 
 
-def save_checkpoint(exp_path, epoch: int, model, optimizer, step: int) -> str:
+def is_sharded(model) -> bool:
+    """Whether `model` was split by FSDP (parallel.train_step.shard_model)."""
+    from torch.distributed.fsdp import FSDPModule
+    return isinstance(model, FSDPModule)
+
+
+def _full_options():
+    """Whole tensors on every rank (with cpu_offload only rank 0 gets any)."""
+    from torch.distributed.checkpoint.state_dict import StateDictOptions
+    return StateDictOptions(full_state_dict=True)
+
+
+def _to_cpu(x):
+    if torch.is_tensor(x):  # a copy: on the CPU, whole parameters would alias
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_cpu(v) for v in x]
+    return x
+
+
+def _param_names(model, optimizer):
+    """The optimizer's parameters by name, in its own order."""
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    return [name_of[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def model_state(model) -> Dict[str, torch.Tensor]:
+    """The whole model's state dict; a collective call on a sharded model."""
+    if not is_sharded(model):
+        return model.state_dict()
+    from torch.distributed.checkpoint.state_dict import get_model_state_dict
+    return _to_cpu(get_model_state_dict(model, options=_full_options()))
+
+
+def optimizer_state(model, optimizer) -> dict:
+    """`optimizer.state_dict()` of an unsharded run: states keyed by the
+    index of their parameter. On a sharded model (a collective call) the
+    gathered states, mapped back to those indices."""
+    if not is_sharded(model):
+        return optimizer.state_dict()
+    from torch.distributed.checkpoint.state_dict import get_optimizer_state_dict
+    full = _to_cpu(get_optimizer_state_dict(model, optimizer, options=_full_options()))
+    names = _param_names(model, optimizer)
+    index = {n: i for i, n in enumerate(names)}
+    return dict(state={index[n]: v for n, v in full["state"].items()},
+                param_groups=[dict(g, params=[index[n] for n in g["params"]])
+                              for g in full["param_groups"]])
+
+
+def load_optimizer_state(model, optimizer, state: dict) -> None:
+    """`optimizer_state`'s layout into `optimizer`, sharded or not."""
+    if not is_sharded(model):
+        optimizer.load_state_dict(state)
+        return
+    from torch.distributed.checkpoint.state_dict import set_optimizer_state_dict
+    names = _param_names(model, optimizer)
+    full = dict(state={names[i]: v for i, v in state["state"].items()},
+                param_groups=[dict(g, params=[names[i] for i in g["params"]])
+                              for g in state["param_groups"]])
+    set_optimizer_state_dict(model, optimizer, full, options=_full_options())
+
+
+def load_model_weights(model, state: Dict[str, torch.Tensor]) -> None:
+    """A whole state dict into `model`, strictly, sharded or not."""
+    if not is_sharded(model):
+        model.load_state_dict(state, strict=True)
+        return
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        set_model_state_dict,
+    )
+    set_model_state_dict(model, state, options=StateDictOptions(
+        full_state_dict=True, strict=True))
+
+
+def save_checkpoint(exp_path, epoch: int, model, optimizer, step: int,
+                    write: bool = True) -> str:
     """{model, optimizer, step} under weights/weights_ep{epoch}/; written to a
-    temporary name first, so a reader never sees half a file."""
+    temporary name first, so a reader never sees half a file. Every rank of
+    a sharded run calls it (the gather is collective); only the one with
+    `write` writes."""
     path = os.path.join(weights_dir(exp_path), ckpt_name(epoch))
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(dict(model=model.state_dict(), optimizer=optimizer.state_dict(),
-                    step=int(step)), tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if not (write or is_sharded(model)):
+        return path
+    state = dict(model=model_state(model), optimizer=optimizer_state(model, optimizer),
+                 step=int(step))
+    if write:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
     return path
 
 
 def load_checkpoint(path, model, optimizer=None) -> int:
     """Restore a checkpoint directory into `model` (strictly) and, if given,
-    `optimizer`; returns the step."""
+    `optimizer`, sharded or not; returns the step."""
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                        weights_only=True)
-    model.load_state_dict(state["model"], strict=True)
+    load_model_weights(model, state["model"])
     if optimizer is not None:
-        optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(model, optimizer, state["optimizer"])
     return state["step"]
 
 

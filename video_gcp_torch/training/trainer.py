@@ -8,7 +8,19 @@ package).
         [--metric 1] [--val_sweep 1] [--dataset_val_sweep 1]
         [--val_metric_batches N] [--val_data_size N]
 
+    [GCP_FSDP=k] torchrun --standalone --nproc_per_node=N \
+        -m video_gcp_torch.training.train --path <conf_dir> ...
+
 Runs on the card unless `--device cpu` is given; without a GPU it raises.
+Under torchrun (several GPUs, or several nodes with torchrun's --nnodes,
+--node_rank and --rdzv_endpoint) each process trains on its own card over
+NCCL (gloo with `--device cpu`): data parallel over every rank, the global
+batch split by rows; with GCP_FSDP=k a dp x fsdp layout of N/k data shards
+by a k-wide 'model' axis that holds the large parameters and their RAdam
+moments split (the JAX trainer's mesh, trainer.py:151-164; N/k must divide
+the batch). Only rank 0 writes the event log, prints and checkpoints; every
+rank reads a resume. `--metric` and `--dataset_val_sweep` run in one
+process.
 Per step: `parallel.train_step.train_step` (forward in phase 'train' /
 mode 'posterior', with K3 in the adaptive binding's matching, backward
 through K1+K2 on the card, finite mask, RAdam). Without trained weights
@@ -54,7 +66,14 @@ from video_gcp_torch.evaluation.eval_logger import TBEvalLogger
 from video_gcp_torch.evaluation.evaluator import PRIOR_INPUTS, Evaluator
 from video_gcp_torch.load import set_float32_precision
 from video_gcp_torch.models.bc import BCModel
-from video_gcp_torch.parallel.train_step import make_optimizer, make_val_step, train_step
+from video_gcp_torch.parallel.mesh import axis_rank, axis_size, init_distributed, make_mesh
+from video_gcp_torch.parallel.train_step import (
+    broadcast_model,
+    make_optimizer,
+    make_val_step,
+    shard_model,
+    train_step,
+)
 from video_gcp_torch.training import checkpoint as ckpt
 from video_gcp_torch.training.config import (
     build_data_conf,
@@ -66,6 +85,13 @@ from video_gcp_torch.training.config import (
     require_dataset,
 )
 from video_gcp_torch.training.logger import Logger
+
+
+class _NullLogger:
+    """The event log of a rank other than 0: writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **kw: None
 
 
 class AverageMeter:
@@ -119,14 +145,17 @@ def parse_args(argv=None):
 class ModelTrainer:
     def __init__(self, args):
         self.args = args
-        self.device = torch.device(args.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ModelTrainer: no CUDA device; pass --device cpu "
                                "to train on the CPU")
+        self.dist = init_distributed(args.device)
+        self.device = self.dist.device
+        self.is_main = self.dist.rank == 0
         set_float32_precision()
         bundle = load_config(args.path)
         self.conf = bundle.configuration
         self.data_conf = bundle.data_conf
+        self.mesh = self._make_mesh()
         if args.deterministic:
             np.random.seed(0)
             torch.manual_seed(0)
@@ -137,39 +166,76 @@ class ModelTrainer:
         if args.new_dir:
             base += datetime_str()
         self.exp_path = base
-        os.makedirs(self.exp_path, exist_ok=True)
-        with open(os.path.join(self.exp_path, "cmd.txt"), "a") as f:
-            f.write(" ".join(sys.argv) + "\n")
-        self.logger = Logger(os.path.join(self.exp_path, "events"))
+        if self.is_main:
+            os.makedirs(self.exp_path, exist_ok=True)
+            with open(os.path.join(self.exp_path, "cmd.txt"), "a") as f:
+                f.write(" ".join(sys.argv) + "\n")
+        self.logger = (Logger(os.path.join(self.exp_path, "events")) if self.is_main
+                       else _NullLogger())
 
         self.hp = build_hparams(bundle)
         self.model = self.conf["model"](self.hp).to(
             self.device, memory_format=torch.channels_last)
-        print(f"model parameters: {sum(p.numel() for p in self.model.parameters())}")
+        self.print(f"model parameters: {sum(p.numel() for p in self.model.parameters())}")
         self.train_loader, self.val_loader = self._build_loaders()
+        # every rank reads the resume; pretrained weights go in before the
+        # model is sharded, a checkpoint (model and optimizer) after
+        self.start_epoch = 0
+        path = ckpt.resolve_resume(args.resume, self.exp_path)
+        if path is not None:
+            self.print(f"resuming from {path}")
+            if path.endswith(".npz"):  # pretrained parameters, fresh optimizer
+                self.model.load_state_dict(
+                    ckpt.flax_to_torch(ckpt.load_pretrained_npz(path)), strict=True)
+        if self.mesh is not None:
+            broadcast_model(self.model)  # one initialisation for every rank
+            if axis_size(self.mesh, "model") > 1:
+                shard_model(self.model, self.mesh)
         self.optimizer = make_optimizer(
             [p for p in self.model.parameters() if p.requires_grad],
             self.conf["optimizer"], self.conf["lr"] or 1e-3,
             self.conf["gradient_clip"], self.conf["momentum"], self.conf["adam_beta"])
-        self.val_step = make_val_step(self.model)
-        self.generator = torch.Generator(self.device).manual_seed(
-            0 if args.deterministic else int(time.time()))
+        self.val_step = make_val_step(self.model, self.mesh)
+        seed = 0 if args.deterministic else int(time.time())
+        if self.mesh is not None:
+            # rank 0's seed, then one stream per data shard: the ranks of a
+            # 'model' group hold the same rows and draw the same noise for
+            # them, as the JAX step's replicated values
+            t = torch.tensor([seed], dtype=torch.int64, device=self.device)
+            torch.distributed.broadcast(t, 0)
+            seed = int(t[0]) + axis_rank(self.mesh, "data")
+        self.generator = torch.Generator(self.device).manual_seed(seed)
         self.step = 0
         self.step_seconds = []  # per step, with --verbose_timing
         self.data_seconds = []  # the wait for each step's batch, likewise
+        if path is not None and not path.endswith(".npz"):
+            self.step = ckpt.load_checkpoint(path, self.model, self.optimizer)
+            m = re.search(r"weights_ep(\d+)", path)
+            if m:
+                self.start_epoch = int(m.group(1)) + 1
 
-        self.start_epoch = 0
-        path = ckpt.resolve_resume(args.resume, self.exp_path)
-        if path is not None:
-            print(f"resuming from {path}")
-            if path.endswith(".npz"):  # pretrained parameters, fresh optimizer
-                self.model.load_state_dict(
-                    ckpt.flax_to_torch(ckpt.load_pretrained_npz(path)), strict=True)
-            else:
-                self.step = ckpt.load_checkpoint(path, self.model, self.optimizer)
-                m = re.search(r"weights_ep(\d+)", path)
-                if m:
-                    self.start_epoch = int(m.group(1)) + 1
+    def print(self, *a, **kw):
+        if self.is_main:
+            print(*a, **kw)
+
+    def _make_mesh(self):
+        """None in a single process; else the JAX trainer's layout
+        (trainer.py:151-164): a 'data' axis over the ranks or, with
+        GCP_FSDP=k, ('data', 'model') of shape (N/k, k). The JAX trainer
+        leaves devices idle until the data axis divides the batch; torchrun
+        starts every rank, so a layout that does not divide raises."""
+        world = self.dist.world_size
+        if world == 1 and "RANK" not in os.environ:
+            return None
+        fsdp = int(os.environ.get("GCP_FSDP", "1"))
+        bs = self.conf["batch_size"]
+        if world % fsdp or bs % (world // fsdp):
+            raise ValueError(f"{world} ranks with GCP_FSDP={fsdp} leave {world / fsdp:g} "
+                             f"data shards, which do not divide the batch of {bs}")
+        dev = self.device.type
+        if fsdp > 1:
+            return make_mesh(world, ("data", "model"), (world // fsdp, fsdp), dev)
+        return make_mesh(world, device_type=dev)
 
     def _build_loaders(self):
         dataset_name = self.conf.get("dataset_name")
@@ -194,6 +260,8 @@ class ModelTrainer:
         return train_loader, val_loader
 
     def _loader(self, dataset, **kw):
+        if self.mesh is not None:
+            kw["rows"] = (axis_rank(self.mesh, "data"), axis_size(self.mesh, "data"))
         # one assembling thread by default: the step's Python thread issues
         # thousands of small launches, and more loader threads take the
         # interpreter from it (9room/gcp_tree on an H100 host with 8 cores:
@@ -212,6 +280,9 @@ class ModelTrainer:
         args = self.args
         if args.num_epochs > 0:
             self.conf["num_epochs"] = args.num_epochs
+        if self.mesh is not None and (args.metric or args.dataset_val_sweep):
+            raise ValueError("--metric and --dataset_val_sweep run in one process, "
+                             "not under torchrun")
         try:
             if args.val_sweep:
                 for epoch in ckpt.get_epochs(self.exp_path):
@@ -231,12 +302,12 @@ class ModelTrainer:
                 return
             for epoch in range(self.start_epoch, self.conf["num_epochs"]):
                 if args.train_deadline and time.time() > args.train_deadline:
-                    print(f"train_deadline reached before epoch {epoch}: stopping "
+                    self.print(f"train_deadline reached before epoch {epoch}: stopping "
                           f"(latest checkpoint: ep{epoch - 1})", flush=True)
                     break
                 self.train_epoch(epoch)
                 ckpt.save_checkpoint(self.exp_path, epoch, self.model,
-                                     self.optimizer, self.step)
+                                     self.optimizer, self.step, write=self.is_main)
                 if not (epoch == 0 and args.skip_first_val):
                     self.val(epoch)
         finally:
@@ -301,6 +372,7 @@ class ModelTrainer:
             self.model, self.exp_path, self.conf, max_seq_len=self.hp["max_seq_len"],
             pruning_scheme=self.conf["metric_pruning_scheme"],
             top_of_100=bool(self.conf["top_of_100_eval"]),
+            use_images=self.hp["use_convs"],
             eval_logger=TBEvalLogger(os.path.join(self.exp_path, "metrics"), self.logger))
         generator = torch.Generator(self.device).manual_seed(123)
         for batch in self.val_loader:
@@ -324,7 +396,7 @@ class ModelTrainer:
             t1 = time.time()
             meters.data.update(t1 - t0)
             metrics = train_step(self.model, self.optimizer, batch, self.step,
-                                 self.generator)
+                                 self.generator, self.mesh)
             self.step += 1
             if self.args.verbose_timing:
                 self._sync()
@@ -340,11 +412,11 @@ class ModelTrainer:
                 for k, v in metrics.items():
                     if np.ndim(v) > 0:
                         self.logger.log_graph(v, k, self.step, "train")
-                if not bool(metrics["grads_finite"]):
+                if not bool(metrics["grads_finite"]) and self.is_main:
                     self._dump_debug_data(batch, metrics)
                 meters.step.update(time.time() - t1)
                 togo = (n_batches - i) * (meters.data.avg + meters.step.avg) / 60
-                print(f"epoch {epoch} it {i}/{n_batches} "
+                self.print(f"epoch {epoch} it {i}/{n_batches} "
                       f"total: {float(metrics['total']):.4f} "
                       f"t_data {meters.data.avg:.3f}s t_step {meters.step.avg:.3f}s "
                       f"ETA {togo:.1f}min", flush=True)
@@ -352,7 +424,7 @@ class ModelTrainer:
                 meters.step.update(time.time() - t1)
             t0 = time.time()
         if self.step_seconds:
-            print(f"epoch {epoch}: median step {statistics.median(self.step_seconds):.4f}s")
+            self.print(f"epoch {epoch}: median step {statistics.median(self.step_seconds):.4f}s")
 
     def val(self, epoch: int):
         losses_acc = {}
@@ -363,17 +435,25 @@ class ModelTrainer:
                 losses_acc.setdefault(k, []).append(float(v))
             if n <= self.args.val_metric_batches:
                 self._quick_image_metrics(batch, img_metrics)
+        if self.mesh is not None:  # the ranks' rows: the mean of their means
+            img_metrics = {k: [self._rank_mean(np.mean(v))] for k, v in img_metrics.items()
+                           if v}
         for k, vals in losses_acc.items():
             self.logger.log_scalar(np.mean(vals), k + "_loss", self.step, "val")
         for k, vals in img_metrics.items():
             if vals:
                 self.logger.log_scalar(np.mean(vals), k, self.step, "val")
-        print(f"[val] epoch {epoch} "
+        self.print(f"[val] epoch {epoch} "
               + " ".join(f"{k}: {np.mean(v):.4f}" for k, v in losses_acc.items())
               + (f" | psnr {np.mean(img_metrics['psnr']):.2f}" if img_metrics["psnr"] else "")
               + f" ({time.time() - t0:.1f}s)", flush=True)
         self.logger.flush()
         return {k: float(np.mean(v)) for k, v in losses_acc.items()}
+
+    def _rank_mean(self, value: float) -> float:
+        t = torch.tensor([float(value)], dtype=torch.float64, device=self.device)
+        torch.distributed.all_reduce(t)
+        return float(t[0]) / self.dist.world_size
 
     @torch.no_grad()
     def _quick_image_metrics(self, batch, acc):
@@ -381,9 +461,13 @@ class ModelTrainer:
         over the padded frames without the first/last crop (JAX
         trainer.py:488-516): a tree's nodes warped onto the GT timeline by
         DTW, the sequential model's rollout as it is. The sample's image
-        logging (_log_val_images) waits for ROADMAP item 13."""
+        logging (_log_val_images) waits for ROADMAP item 13, and with it the
+        top-down overlay that the JAX trainer draws for state-space models
+        (trainer.py:519-525, 561-575)."""
         if isinstance(self.model, BCModel):
             return  # no frames to score (the JAX trainer's _dense_prediction is None)
+        if not self.hp.get("use_convs", True):
+            return  # image metrics over state vectors mean nothing (JAX :507-508)
         batch = AttrDict(batch)
         batch.traj_seq = to_float_images(batch.traj_seq)
         out = self.model(AttrDict({k: batch[k] for k in PRIOR_INPUTS if k in batch}),
@@ -405,4 +489,8 @@ class ModelTrainer:
 
 
 def main(argv=None):
-    ModelTrainer(parse_args(argv)).run()
+    try:
+        ModelTrainer(parse_args(argv)).run()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
