@@ -67,11 +67,13 @@ Run from the root of the repository, with no arguments:
    Checks 20 K1 and 20 K2 launches per step, finite losses, finite
    gradients, and that every parameter with a gradient changed; prints the
    warm ms per step (median of steps 3-31), training frames/s, the peak
-   device memory and BWD_DY_COPIES. Then one step of ep74 on the first 2
-   examples of the first batch, with the same injected noise and the
-   card's LeakyReLU branches (SharedSigns), on the card and on the CPU:
-   every loss term and every gradient agree within the tolerances of
-   tests/test_torch_train.py.
+   device memory and BWD_DY_COPIES. Then one step of ep74 on 2 examples
+   whose order and windows are drawn from SEED (vs_cpu_batch), with the
+   same injected noise and the card's LeakyReLU branches at the K1 sites
+   (SharedSigns), on the card and on the CPU: every loss term and every
+   gradient agree within the tolerances of tests/test_torch_train.py.
+   Prints how many branches at the MLPs' LeakyReLUs differ from the card's
+   (counted, not shared).
 7. Adaptive train phase: the trainer on the card, as `python -m
    video_gcp_torch.training.train --path
    experiments/prediction/9room/gcp_adaptive --feed_random_data 1
@@ -105,7 +107,24 @@ Run from the root of the repository, with no arguments:
    the channel-first .npy dumps' shapes, and one sample with injected z
    against the CPU. Then 'pruned_dtw' at top-of-10. Prints seconds per
    batch, decoded frames/s (top_of x B x 127 nodes / s) and the DTW warp's
-   ms at [16, 127, 100].
+   ms at [16, 127, 100]. Then the greedy schemes at top-of-10,
+   'greedy_exist' (ep74's existence predictor) and 'greedy_l2': 15 K1 per
+   sampled forward each, finite metrics; prints seconds per batch.
+9b. Eval extras phase, over the eval phase's dumps ([16, 99, 3, 32, 32]):
+   FVD through I3D at Kinetics-400 width on 224x224 frames and LPIPS(alex),
+   from checkpoints synthesized from a seed and named by GCP_I3D_WEIGHTS
+   and GCP_LPIPS_WEIGHTS; each held card against CPU on 2 videos x 8
+   frames (TOL_I3D, TOL_LPIPS); prints I3D ms per video, LPIPS ms per
+   frame, the FVD and LPIPS values and the weight-free proxies' numbers.
+9c. Finetune phase: `python -m video_gcp_torch.training.finetune_inv_mdl
+   --path experiments/prediction/9room/gcp_tree_widegap --base <ep74 npz>
+   --epochs 1 --feed_random_data 1 --val_metric_batches 1` run in-process,
+   its random sequences cut to 4 steps at B=16, T=100 and one val batch:
+   20 K1 and 20 K2 a step (the whole backward; only inv_mdl stepped),
+   55 K1 in the val pass (the val step, the logged prior sample and
+   posterior pass), every parameter outside inv_mdl bit-identical to ep74,
+   the inverse model moved, and the val pass's image files
+   (FINETUNE_IMAGES); prints ms per step.
 10. Plan phase: closed-loop visual planning on 9room/gcp_tree with ep74 on
    the card. ep74 as a port checkpoint under the build directory and the
    start/goal configurations 0-1 of the port's PRM expert
@@ -211,6 +230,13 @@ parent's: dp_rows, its K3 and posterior) and checks that this checkout's F
 and Bk equal the parent's DP values bit for bit and w is within 1e-6 of the
 parent's. --kernels-only stops after those phases and prints their rows as
 JSON.
+
+    python3 chip_smoke.py --flip-probe WINDOWS
+
+builds, makes the h5 data and runs only flip_probe: VMPC trained as in the
+baselines phase FLIP_PROBE_MODELS times, and its card-vs-CPU step on WINDOWS
+seeded windows of each, the CPU step once with the card's LeakyReLU branches
+at the K1 sites only and once with those at the MLPs' LeakyReLUs too.
 """
 import functools
 import json
@@ -265,6 +291,7 @@ TOLS_TRAIN = dict(loss=1e-4, grad=2e-3)  # tests/test_torch_train.py, ep74
 # prediction by ~1.6e-2 (cost_estimation). Gradients wider still, as bf16
 # error grows through the tree's recursive LSTM (tests/test_torch_bf16.py).
 TOLS_TRAIN_BF16 = dict(loss=5e-2, grad=1e-1)
+FLIP_PROBE_MODELS = 4  # --flip-probe: VMPC trainings, each with its windows
 # K3: [B, r, c] of the adaptive training step; the largest shape the repo
 # names (video_gcp_tpu/ops/pallas_dtw.py:7-9: 511 nodes x 500 frames)
 K3_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (TRAIN_B, 511, 500)]
@@ -279,6 +306,22 @@ BF16_STEPS = 8
 BF16_WARM = CEM_ITERS  # warm serving calls of each model
 BF16_MOVE_GRAD = 1e-6  # a bf16 step's gradient at least this large moves its parameter
 TOL_EVAL_METRIC = 1e-4  # tests/test_torch_evaluator.py, relative to max(1, |value|)
+GREEDY_TOP_OF = 10  # the greedy eval schemes' samples per sequence
+# eval_extras: card vs CPU, relative to the largest value. I3D: f32 through
+# ~60 convs (tests/test_torch_fvd.py holds port vs JAX at 1e-4); LPIPS: five
+# convs (tests/test_torch_lpips.py, 1e-5)
+TOL_I3D, TOL_LPIPS = 1e-4, 1e-5
+# the inverse-model fine-tune: 9room/gcp_tree_widegap from ep74; the whole
+# backward runs (every gradient is checked, as in the JAX step) and only
+# inv_mdl is stepped: a regular step's launches. Its val pass: the val
+# step's 20 K1, the logged prior sample's 15 and posterior pass's 20
+WIDEGAP_CONF = ROOT / "experiments/prediction/9room/gcp_tree_widegap"
+FINETUNE_STEPS = 4
+FINETUNE_PER_STEP = (NORMS_PER_STEP, NORMS_PER_STEP, 0)
+FINETUNE_VAL_PASS = (NORMS_PER_STEP + 15 + NORMS_PER_STEP, 0, 0)
+FINETUNE_IMAGES = ("val_gt_vs_pred", "val_pred_gif", "output_tree", "pruned_pred",
+                   "gt_match_overview", "regressed_state_topdown")
+ALEXNET_CONVS = [(3, 64, 11), (64, 192, 5), (192, 384, 3), (384, 256, 3), (256, 256, 3)]
 EXP_DIR = ROOT / "video_gcp_torch/_build/chip_smoke_exp"  # git-ignored
 # the seed of every np.random stream of the control runs and the data
 # generation (planning.run --seed): each run of the script makes the same
@@ -1142,7 +1185,225 @@ def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader,
           f"{10 * TRAIN_B * N_NODES / sec_p:.0f} decoded frames/s, mse best "
           f"{res_p.metrics['mse'].min(1).mean():.6g}; DTW warp at [{TRAIN_B}, {N_NODES}, "
           f"{TRAIN_T}] {warp_ms:.3f} ms (alignment alone {align_ms:.3f} ms)")
-    return launches
+
+    # the greedy schemes at top-of-10: ep74's existence predictor
+    # (greedy_exist) and the root-down least-L2 match (greedy_l2)
+    by_path = {"eval": launches}
+    for scheme in ("greedy_exist", "greedy_l2"):
+        ev_g = Evaluator(model, str(out_dir / scheme), {}, TRAIN_T, scheme)
+        ev_g._top_of = GREEDY_TOP_OF
+        n_g = GREEDY_TOP_OF + min(ev_g.N_PLOTTED_ELEMENTS, GREEDY_TOP_OF)
+        fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0  # the scheme starts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_g = ev_g.eval(batch, gen)
+        torch.cuda.synchronize()
+        sec_g = time.perf_counter() - t0
+        k1 = fused_gn.LAUNCHES
+        if k1 != 15 * n_g or fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
+            fail(f"eval: {scheme}: {k1} K1 launches for {n_g} sampled forwards, expected 15 "
+                 f"each; K2 {fused_gn.BWD_LAUNCHES}, K3 {soft_dtw.LAUNCHES}")
+        if not all(np.isfinite(v).all() and v.shape == (TRAIN_B, GREEDY_TOP_OF)
+                   for v in res_g.metrics.values()):
+            fail(f"eval: {scheme} metrics not finite or not [{TRAIN_B}, {GREEDY_TOP_OF}]")
+        if res_g.best_gen.shape != (TRAIN_B, TRAIN_T, 32, 32, 3):
+            fail(f"eval: {scheme} frames {res_g.best_gen.shape}")
+        by_path[f"eval_{scheme}"] = k1
+        print(f"eval: Evaluator '{scheme}' top-of-{GREEDY_TOP_OF}: {sec_g:.3f} s per batch, "
+              f"K1 launches {k1} = 15 x {n_g} sampled forwards, mse best "
+              f"{res_g.metrics['mse'].min(1).mean():.6g}")
+    return by_path
+
+
+def synthetic_i3d(torch, path, fvd, seed=SEED):
+    """A pytorch-i3d checkpoint at Kinetics-400 width from a seed: unit-scale
+    BN gammas, positive running_var, and He-scaled conv kernels (std
+    sqrt(2 / fan-in)), which keep the logits dependent on the input through
+    the ~60 ReLU units."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for name, shape in fvd.i3d_param_shapes().items():
+        if name.endswith("running_var"):
+            a = 1.0 + 0.1 * rng.rand(*shape)
+        elif name.endswith("bn.weight"):
+            a = 1.0 + 0.05 * rng.randn(*shape)
+        elif "conv3d.weight" in name:
+            a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        else:
+            a = 0.05 * rng.randn(*shape)
+        sd[name] = torch.from_numpy(a.astype(np.float32))
+    torch.save(sd, path)
+
+
+def synthetic_alexnet(torch, path, seed=SEED):
+    """torchvision AlexNet's feature convs and the lpips 'alex' head, from a
+    seed."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for i, (idx, (cin, cout, k)) in enumerate(zip((0, 3, 6, 8, 10), ALEXNET_CONVS)):
+        sd[f"features.{idx}.weight"] = torch.from_numpy(
+            (rng.randn(cout, cin, k, k) / np.sqrt(cin * k * k)).astype(np.float32))
+        sd[f"features.{idx}.bias"] = torch.from_numpy((0.05 * rng.randn(cout)).astype(np.float32))
+        sd[f"lin{i}.model.1.weight"] = torch.from_numpy(rng.rand(1, cout, 1, 1).astype(np.float32))
+    torch.save(sd, path)
+
+
+def i3d_flops(torch, fvd, n_frames, size=224):
+    """Multiply-adds x 2 of the I3D convs on one video, from the shapes: the
+    forward on meta tensors, each conv counted as it is called."""
+    shapes = fvd.i3d_param_shapes()
+    params = {k: torch.empty(v, device="meta") for k, v in shapes.items()}
+    for k in [k for k in shapes if k.endswith(".bn.running_var")]:
+        base = k[:-len(".running_var")]
+        params[base + ".scale"] = params[base + ".shift"] = torch.empty(shapes[k], device="meta")
+    count, real = [0], fvd.F.conv3d
+
+    def counted(x, w, *a, **kw):
+        y = real(x, w, *a, **kw)
+        count[0] += 2 * y.numel() * w[0].numel()
+        return y
+
+    fvd.F.conv3d = counted
+    try:
+        fvd.i3d_logits(params, torch.empty(1, n_frames, size, size, 3, device="meta"))
+    finally:
+        fvd.F.conv3d = real
+    return count[0]
+
+
+def eval_extras_phase(torch):
+    """FVD (I3D at Kinetics-400 width, 224x224) and LPIPS(alex) over the eval
+    phase's dumps on the card, through GCP_I3D_WEIGHTS / GCP_LPIPS_WEIGHTS
+    pointed at checkpoints synthesized from a seed; each held card against
+    CPU on a cut of 2 videos x 8 frames; the weight-free proxies' numbers."""
+    from video_gcp_torch.evaluation import fvd, lpips
+    dumps = EXP_DIR / "eval/metrics"
+    gt_path, gen_path = str(dumps / "gt_seq_0.npy"), str(dumps / "gen_images_0.npy")
+    gt_cf = np.load(gt_path)
+    n_videos, n_frames = gt_cf.shape[:2]
+    work = EXP_DIR / "eval_extras"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    synthetic_i3d(torch, work / "i3d.pt", fvd)
+    synthetic_alexnet(torch, work / "alexnet.pth")
+    os.environ[fvd.I3D_WEIGHTS_ENV] = str(work / "i3d.pt")
+    os.environ[lpips.LPIPS_WEIGHTS_ENV] = str(work / "alexnet.pth")
+    try:
+        embed, kind = fvd.default_embed_fn()  # the card
+        features, lkind = lpips.default_feature_fn()
+    finally:
+        del os.environ[fvd.I3D_WEIGHTS_ENV], os.environ[lpips.LPIPS_WEIGHTS_ENV]
+    if (kind, lkind) != ("i3d", "alex") or features.lins is None:
+        fail(f"eval_extras: the weights' env vars gave {kind} and {lkind}")
+
+    # I3D on the cut, card against CPU; the logits are 400 wide
+    cut = (np.transpose(gt_cf[:2, :8], (0, 1, 3, 4, 2)) + 1.0) * 127.5
+    card = embed(cut)
+    cpu = fvd.i3d_embed_fn(str(work / "i3d.pt"), device="cpu")(cut)
+    i3d_d = np.abs(card - cpu).max() / np.abs(cpu).max()
+    if card.shape != (2, 400) or not np.isfinite(card).all() or not i3d_d < TOL_I3D:
+        fail(f"eval_extras: I3D logits {card.shape}, card vs CPU {i3d_d} (tolerance {TOL_I3D})")
+    # one embedding of the 16 dumped videos (a batch), then the whole FVD
+    videos = (np.transpose(gt_cf, (0, 1, 3, 4, 2)) + 1.0) * 127.5
+    embed(videos)  # warm, at the dumps' length
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embed(videos)
+    i3d_s = time.perf_counter() - t0  # embed returns host arrays: synchronized
+    t0 = time.perf_counter()
+    value = fvd.compute_fvd(gt_path, gen_path, embed_fn=embed)
+    fvd_s = time.perf_counter() - t0
+    proxy = fvd.compute_fvd(gt_path, gen_path)  # the card's weight-free proxy
+    if not (np.isfinite(value) and np.isfinite(proxy)):
+        fail(f"eval_extras: FVD {value}, proxy {proxy}")
+    flops = i3d_flops(torch, fvd, n_frames)
+    bound_ms = flops / F32_FLOPS_PER_S * 1e3
+    print(f"eval_extras: I3D (synthesized Kinetics-400 weights, {n_frames} frames resized to "
+          f"224x224, 400 logits) {i3d_s * 1e3 / n_videos:.2f} ms per video (a batch of "
+          f"{n_videos}); {flops / 1e9:.1f} GFLOP a video, bound {bound_ms:.2f} ms at f32 "
+          f"(operations), {flops * n_videos / i3d_s / 1e12:.1f} TFLOP/s; "
+          f"FVD of {n_videos} vs {n_videos} videos {value:.6g} in {fvd_s:.3f} s; "
+          f"card vs CPU on 2 videos x 8 frames: logits within {i3d_d:.3e} of the largest "
+          f"(tolerance {TOL_I3D}); FVD-proxy (the port's own random features, not the JAX "
+          f"package's) {proxy:.6g}")
+
+    # LPIPS(alex) likewise
+    a = np.transpose(gt_cf[:2, :8], (0, 1, 3, 4, 2)).reshape(-1, 32, 32, 3)
+    b = np.transpose(np.load(gen_path)[:2, :8], (0, 1, 3, 4, 2)).reshape(-1, 32, 32, 3)
+    d_card = lpips.lpips_distance(a, b, features)
+    d_cpu = lpips.lpips_distance(a, b, lpips.alexnet_feature_fn(str(work / "alexnet.pth"),
+                                                                "cpu"))
+    lp_d = np.abs(d_card - d_cpu).max() / np.abs(d_cpu).max()
+    if not (np.isfinite(d_card).all() and lp_d < TOL_LPIPS):
+        fail(f"eval_extras: LPIPS card vs CPU {lp_d} (tolerance {TOL_LPIPS})")
+    lpips.compute_lpips(gt_path, gen_path, features)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = lpips.compute_lpips(gt_path, gen_path, features)
+    torch.cuda.synchronize()
+    lp_s = time.perf_counter() - t0
+    lp_proxy = lpips.compute_lpips(gt_path, gen_path)
+    if not (np.isfinite(lp) and np.isfinite(lp_proxy)):
+        fail(f"eval_extras: LPIPS {lp}, proxy {lp_proxy}")
+    print(f"eval_extras: LPIPS(alex, synthesized weights) over {n_videos} x {n_frames} frame "
+          f"pairs: {lp:.6g} in {lp_s:.3f} s, {lp_s * 1e3 / (n_videos * n_frames):.4f} ms per "
+          f"frame; card vs CPU on 16 frames within {lp_d:.3e} (tolerance {TOL_LPIPS}); "
+          f"LPIPS-proxy (the port's own random features) {lp_proxy:.6g}")
+
+
+def finetune_phase(torch, fused_gn, soft_dtw, trainer_mod):
+    """The inverse-model fine-tune of 9room/gcp_tree_widegap from ep74 on the
+    card (video_gcp_torch.training.finetune_inv_mdl, --feed_random_data 1),
+    cut to FINETUNE_STEPS steps at B=16, T=100 and one val pass of one batch
+    (--val_metric_batches 1). Checks K1/K2/K3 per step and per val pass,
+    every parameter outside inv_mdl bit-identical to ep74 after the steps,
+    the inverse model moved, and the val pass's image files."""
+    from video_gcp_torch.training import finetune_inv_mdl as ft
+    os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
+    shutil.rmtree(EXP_DIR / "prediction/9room/gcp_tree_widegap", ignore_errors=True)
+    trainer = ft.build(str(WIDEGAP_CONF), str(WEIGHTS), "cuda", [
+        "--feed_random_data", "1", "--deterministic", "1", "--val_metric_batches", "1",
+        "--verbose_timing", "1"])
+    loader = trainer.train_loader
+    loader.dataset.n_seqs = FINETUNE_STEPS * TRAIN_B // loader.n_repeat
+    trainer.val_loader.dataset.n_seqs = TRAIN_B
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    t0 = time.perf_counter()
+    steps, vals, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer,
+                                        run=lambda: ft.run(trainer, 1))
+    wall = time.perf_counter() - t0
+    if len(steps) != FINETUNE_STEPS or len(vals) != 1:
+        fail(f"finetune: {len(steps)} steps and {len(vals)} val passes")
+    check_steps(torch, "finetune", steps, vals, FINETUNE_PER_STEP)
+    stepped = tuple(sum(s[i] for s in steps) for i in range(3))
+    val_pass = tuple(a - b for a, b in zip(launches, stepped))
+    if val_pass != FINETUNE_VAL_PASS:
+        fail(f"finetune: K1/K2/K3 launches in the val pass {val_pass}, expected "
+             f"{FINETUNE_VAL_PASS}")
+    moved, frozen = 0, []
+    for k, v in trainer.model.state_dict().items():
+        same = torch.equal(v, before[k])
+        if ft.is_trained(k):
+            moved += not same
+        elif not same:
+            frozen.append(k)
+    if frozen or not moved:
+        fail(f"finetune: frozen parameters that changed {frozen[:5]}; inv_mdl tensors that "
+             f"moved {moved}")
+    images = Path(trainer.logger.log_dir) / "images"
+    written = sorted(p.name for p in images.iterdir()) if images.is_dir() else []
+    missing = [t for t in FINETUNE_IMAGES if not any(n.startswith(f"val_{t}_") for n in written)]
+    if missing:
+        fail(f"finetune: the val pass wrote no {missing} (files: {written})")
+    warm = statistics.median(trainer.step_seconds[1:])
+    print(f"finetune: {WIDEGAP_CONF.name} from ep74, {FINETUNE_STEPS} steps at B={TRAIN_B} "
+          f"T={TRAIN_T}, a checkpoint and a val pass in {wall:.2f} s; K1/K2/K3 per step "
+          f"{FINETUNE_PER_STEP} (design: the whole backward, only inv_mdl stepped), in the "
+          f"val pass {val_pass} (val step, logged prior and posterior passes); synced ms per "
+          f"step {[round(t * 1e3, 2) for t in trainer.step_seconds]}, median of steps 1-"
+          f"{FINETUNE_STEPS - 1} {warm * 1e3:.2f}; {moved} inv_mdl tensors moved, every other "
+          f"parameter bit-identical to ep74; images {sorted(FINETUNE_IMAGES)}")
+    return {"finetune": stepped, "finetune_val": val_pass}
 
 
 def rank_rows(a, rows):
@@ -1201,15 +1462,26 @@ class SharedSigns:
     group's gradient (fused_gn.clear_of_kink): with data drawn anew each
     run, an h5 step's decoder gradient once differed by 5.9e-3 that way.
     Counts the elements whose branch the CPU's own rounding would have
-    chosen otherwise."""
+    chosen otherwise (`flips`). With `leaky` (one process) the card's
+    branches at the MLPs' and sequence encoders' LeakyReLUs (nets._leaky)
+    are recorded too, and the CPU run counts the elements where its own
+    branch differs (`leaky_flips`, with the largest such |x| relative to
+    its site's largest |x|, `leaky_kink`); it takes the card's branch there
+    only with `impose_leaky` (the flip probe, --flip-probe)."""
 
     def __init__(self, torch, masks=None, rows=None):
         from video_gcp_torch.models import nets
         self.torch, self.nets = torch, nets
-        self.masks, self.flips, self.rows = masks or [], 0, rows
+        self.masks, self.rows, self.leaky_masks = masks or [], rows, []
+        self.reset()
 
-    def run(self, fn, record):
-        torch, real, pos = self.torch, self.nets.fused_group_norm_lrelu, [0]
+    def reset(self):
+        self.flips = self.leaky_flips = 0
+        self.leaky_kink = 0.0
+
+    def run(self, fn, record, leaky=False, impose_leaky=False):
+        torch, real, pos = self.torch, self.nets.fused_group_norm_lrelu, [0, 0]
+        real_leaky = self.nets._leaky
 
         def recorded(x, scale, bias, groups, eps=1e-6, slope=0.2):
             y = real(x, scale, bias, groups, eps, slope)
@@ -1226,19 +1498,40 @@ class SharedSigns:
             self.flips += int((mask != (pre >= 0)).sum())
             return torch.where(mask, pre, slope * pre)
 
+        def recorded_leaky(x):
+            self.leaky_masks.append((x >= 0).cpu())
+            return real_leaky(x)
+
+        def replayed_leaky(x):
+            mask = self.leaky_masks[pos[1]].to(x.device)
+            pos[1] += 1
+            if mask.shape != x.shape:
+                fail(f"LeakyReLU site {pos[1]}: {tuple(x.shape)} replayed, "
+                     f"{tuple(mask.shape)} recorded")
+            flipped = mask != (x >= 0)
+            if flipped.any():
+                self.leaky_flips += int(flipped.sum())
+                self.leaky_kink = max(self.leaky_kink, float(
+                    x.detach()[flipped].abs().max() / x.detach().abs().max()))
+            return torch.where(mask, x, 0.2 * x) if impose_leaky else real_leaky(x)
+
         self.nets.fused_group_norm_lrelu = recorded if record else imposed
+        if leaky:
+            self.nets._leaky = recorded_leaky if record else replayed_leaky
         try:
             return fn()
         finally:
-            self.nets.fused_group_norm_lrelu = real
+            self.nets.fused_group_norm_lrelu, self.nets._leaky = real, real_leaky
             if not record and pos[0] != len(self.masks):
                 fail(f"{pos[0]} K1 sites replayed, {len(self.masks)} recorded")
+            if leaky and not record and pos[1] != len(self.leaky_masks):
+                fail(f"{pos[1]} LeakyReLU sites replayed, {len(self.leaky_masks)} recorded")
 
 
-def run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer):
-    """trainer.run() with the launch counts reset, recording each train
-    step's K1, K2 and K3 launches with its metrics and each val pass's
-    losses. Returns them and the whole run's launches."""
+def run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer, run=None):
+    """trainer.run() (or `run()`) with the launch counts reset, recording
+    each train step's K1, K2 and K3 launches with its metrics and each val
+    pass's losses. Returns them and the whole run's launches."""
     steps, vals = [], []
     real_step, real_val = trainer_mod.train_step, trainer.val
 
@@ -1254,7 +1547,7 @@ def run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer):
     fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = fused_gn.BWD_DY_COPIES = 0
     soft_dtw.LAUNCHES = 0
     try:
-        trainer.run()
+        (run or trainer.run)()
     finally:
         trainer_mod.train_step = real_step
         del trainer.val
@@ -1338,40 +1631,72 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
     return trainer, launches
 
 
-def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag,
-                 tols=TOLS_TRAIN):
-    """One train step of `make_model(device)` on the first 2 examples of the
-    trainer's first batch, with the same injected noise and the card's
-    LeakyReLU branches (SharedSigns), on the card and on the CPU: each loss
-    relative to max(1, |CPU loss|) and each gradient tensor's largest
-    difference relative to its largest CPU gradient within `tols`."""
-    first = next(iter(DataLoader(dataset, TRAIN_B, shuffle=True, n_repeat=2,
-                                 num_workers=4)))
-    batch = AttrDict({k: v[:2] for k, v in first.items()})
+def vs_cpu_batch(DataLoader, AttrDict, dataset, seed=SEED):
+    """The first 2 examples of `dataset` in a loader's order seeded with
+    `seed`, their windows drawn in turn from RandomState(seed) by one
+    worker: the card-vs-CPU steps compare data that a run can replay."""
+    dataset._rng = np.random.RandomState(seed)
+    return AttrDict(next(iter(DataLoader(dataset, 2, shuffle=True, n_repeat=2,
+                                         num_workers=1, seed=seed))))
+
+
+def card_vs_cpu_step(torch, make_model, AttrDict, distributions, batch, leaky_passes):
+    """One train step of `make_model(device)` on `batch` on the card, then
+    on the CPU once for each of `leaky_passes`, with the same injected noise
+    (SharedNoise) and the card's LeakyReLU branches at the K1 sites and,
+    where the pass is True, at nets._leaky too (SharedSigns; where it is
+    False, the branches there that differ are only counted). Returns, for
+    each CPU pass, each loss relative to max(1, |CPU loss|), each gradient
+    tensor's largest difference relative to its largest CPU gradient, and
+    the branches that differ from the card's."""
     noise, signs = SharedNoise(torch, distributions), SharedSigns(torch)
-    results = []
-    for device in ("cuda", "cpu"):
+
+    def step(device, record, impose_leaky=False):
         model = make_model(device).train()
         out = signs.run(lambda: noise.run(lambda: model(
             AttrDict({k: v.to(device) for k, v in batch.items()}),
-            phase="train", mode="posterior")), record=device == "cuda")
+            phase="train", mode="posterior")), record, True, impose_leaky)
         out.losses.total.value.backward()
-        results.append(({k: float(v.value.detach()) for k, v in out.losses.items()},
-                        {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
-                         for n, p in model.named_parameters() if p.requires_grad}))
-    (card_l, card_g), (cpu_l, cpu_g) = results
-    loss_d = {k: abs(card_l[k] - v) / max(1.0, abs(v)) for k, v in cpu_l.items()}
-    grad_d = {n: (card_g[n] - g).abs().max().item() / max(1e-3, g.abs().max().item())
-              for n, g in cpu_g.items()}
-    worst = max(grad_d, key=grad_d.get)
-    if max(loss_d.values()) >= tols["loss"] or grad_d[worst] >= tols["grad"]:
-        fail(f"{tag}: card vs CPU losses {loss_d}, worst gradient {worst} {grad_d[worst]}")
+        return ({k: float(v.value.detach()) for k, v in out.losses.items()},
+                {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+                 for n, p in model.named_parameters() if p.requires_grad})
+
+    card_l, card_g = step("cuda", True)
+    passes = []
+    for impose_leaky in leaky_passes:
+        signs.reset()
+        cpu_l, cpu_g = step("cpu", False, impose_leaky)
+        grad_d = {n: (card_g[n] - g).abs().max().item() / max(1e-3, g.abs().max().item())
+                  for n, g in cpu_g.items()}
+        passes.append(AttrDict(
+            loss_d={k: abs(card_l[k] - v) / max(1.0, abs(v)) for k, v in cpu_l.items()},
+            grad_d=grad_d, worst=max(grad_d, key=grad_d.get), flips=signs.flips,
+            sites=sum(m.numel() for m in signs.masks), leaky_flips=signs.leaky_flips,
+            leaky_sites=sum(m.numel() for m in signs.leaky_masks),
+            leaky_kink=signs.leaky_kink))
+    return passes
+
+
+def train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag,
+                 tols=TOLS_TRAIN):
+    """One train step of `make_model(device)` on 2 examples of `dataset`
+    (vs_cpu_batch), card against CPU with the card's branches at the K1
+    sites (card_vs_cpu_step): each loss and gradient tensor within `tols`.
+    Prints the branches that differ from the card's at nets._leaky too."""
+    r, = card_vs_cpu_step(torch, make_model, AttrDict, distributions,
+                          vs_cpu_batch(DataLoader, AttrDict, dataset), (False,))
+    leaky = (f"{r.leaky_flips} of {r.leaky_sites} at nets._leaky differ from the card's "
+             f"(not shared; the largest |x| among them {r.leaky_kink:.3e} of its site's)")
+    if max(r.loss_d.values()) >= tols["loss"] or r.grad_d[r.worst] >= tols["grad"]:
+        fail(f"{tag}: card vs CPU on the window of seed {SEED} (vs_cpu_batch), losses "
+             f"{r.loss_d}, worst gradient {r.worst} {r.grad_d[r.worst]}; LeakyReLU branches: "
+             f"{r.flips} of {r.sites} taken from the card at the K1 sites, {leaky}")
     print(f"{tag}: card vs CPU, one step on 2 examples, losses (relative): "
-          + json.dumps({k: float(f"{v:.3e}") for k, v in loss_d.items()}))
-    print(f"{tag}: card vs CPU, gradients of {len(grad_d)} tensors, worst "
-          f"{grad_d[worst]:.3e} ({worst}, relative to its largest CPU gradient); "
-          f"LeakyReLU branches the CPU took from the card: {signs.flips} of "
-          f"{sum(m.numel() for m in signs.masks)}")
+          + json.dumps({k: float(f"{v:.3e}") for k, v in r.loss_d.items()}))
+    print(f"{tag}: card vs CPU, gradients of {len(r.grad_d)} tensors, worst "
+          f"{r.grad_d[r.worst]:.3e} ({r.worst}, relative to its largest CPU gradient); "
+          f"LeakyReLU branches the CPU took from the card: {r.flips} of {r.sites} at the K1 "
+          f"sites; {leaky}")
 
 
 class _Recorder:
@@ -1682,14 +2007,9 @@ def step_busy_ms(torch, trainer, step_fn):
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 or None
 
 
-def h5_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
-             load_model):
-    """nav_9rooms data made on the host by the port's PRM expert and written
-    as h5 files through the port's HDF5 module, read back, then 9room/gcp_tree
-    and 9room/gcp_sequential trained from them at full width through
-    ModelTrainer with a val pass each epoch, and one step of each held card
-    against CPU. Returns each model's K1/K2/K3 launches."""
-    from video_gcp_torch.data import h5
+def make_h5_data():
+    """H5_FILES nav_9rooms trajectories by the port's PRM expert, written
+    as h5 files under EXP_DIR. Returns their directory and the seconds."""
     from video_gcp_torch.planning.run import ControlManager
 
     data_dir = EXP_DIR / "h5_data"
@@ -1700,7 +2020,19 @@ def h5_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
     t0 = time.perf_counter()
     ControlManager([str(_config_copy(H5_DATA_GEN)), "--device", "cpu", "--start_idx", "0",
                     "--end_idx", str(H5_FILES - 1), "--seed", str(SEED)]).run()
-    gen_s = time.perf_counter() - t0
+    return data_dir, time.perf_counter() - t0
+
+
+def h5_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+             load_model):
+    """nav_9rooms data made on the host by the port's PRM expert and written
+    as h5 files through the port's HDF5 module, read back, then 9room/gcp_tree
+    and 9room/gcp_sequential trained from them at full width through
+    ModelTrainer with a val pass each epoch, and one step of each held card
+    against CPU. Returns each model's K1/K2/K3 launches."""
+    from video_gcp_torch.data import h5
+
+    data_dir, gen_s = make_h5_data()
     files = sorted((data_dir / "nav_9rooms").glob("*.h5"))
     if len(files) != H5_FILES:
         fail(f"h5: the data generation wrote {len(files)} files, expected {H5_FILES}")
@@ -1926,6 +2258,66 @@ def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag):
         {k: float(f"{float(v):.6g}") for k, v in steps[-1][3].items() if v.dim() == 0}))
     print(f"{tag}: val " + json.dumps({k: float(f"{v:.6g}") for k, v in vals[0].items()}))
     return trainer, [s[3] for s in steps], launches
+
+
+def flip_probe(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+               load_model, windows, models=FLIP_PROBE_MODELS):
+    """The baselines phase's VMPC card-vs-CPU step over `models` trainings
+    (as baseline_train) x `windows` seeded windows (vs_cpu_batch with seeds
+    0..windows-1), each on the CPU twice: with the card's LeakyReLU branches
+    at the K1 sites only, and at nets._leaky too. Prints a line for each
+    step and how many steps beyond TOLS_TRAIN with the branches at the K1
+    sites only had a branch flipped at nets._leaky and pass with it shared."""
+    data_dir, gen_s = make_h5_data()
+    shutil.copytree(ROOT / "experiments/prediction/base_configs",
+                    EXP_DIR / "experiments/prediction/base_configs")
+    vmpc_conf = _write("experiments/prediction/9room/vmpc/conf.py",
+                       (SEQ_CONF / "conf.py").read_text() + VMPC_OVERRIDES)
+    print(f"flip_probe: {H5_FILES} nav_9rooms trajectories in {gen_s:.2f} s")
+    rows = []
+    for m in range(models):
+        trainer, _, _ = baseline_train(torch, fused_gn, soft_dtw, trainer_mod,
+                                       vmpc_conf.parent, VMPC_PER_STEP, "vmpc")
+        trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+
+        def make_model(device):
+            model = load_model(vmpc_conf.parent, device=device)
+            model.load_state_dict(trained)
+            return model
+
+        for w in range(windows):
+            k1_only, shared = card_vs_cpu_step(
+                torch, make_model, AttrDict, distributions,
+                vs_cpu_batch(DataLoader, AttrDict, trainer.train_loader.dataset, seed=w),
+                (False, True))
+            row = dict(model=m, window=w, k1_flips=k1_only.flips,
+                       leaky_flips=shared.leaky_flips, leaky_kink=shared.leaky_kink,
+                       k1_only=[k1_only.worst, k1_only.grad_d[k1_only.worst],
+                                max(k1_only.loss_d.values())],
+                       shared=[shared.worst, shared.grad_d[shared.worst],
+                               max(shared.loss_d.values())])
+            rows.append(row)
+            print(f"flip_probe: model {m} window {w}: flips K1 {k1_only.flips}, nets._leaky "
+                  f"{shared.leaky_flips} (|x| {shared.leaky_kink:.2e}); worst gradient, K1 "
+                  f"only {row['k1_only'][1]:.3e} {k1_only.worst}, shared "
+                  f"{row['shared'][1]:.3e} {shared.worst}")
+        del trainer
+    beyond = [r for r in rows if r["k1_only"][1] >= TOLS_TRAIN["grad"]
+              or r["k1_only"][2] >= TOLS_TRAIN["loss"]]
+    print("flip_probe: " + json.dumps(dict(
+        steps=len(rows), beyond_tols_k1_only=len(beyond),
+        of_them_with_a_leaky_flip=sum(r["leaky_flips"] > 0 for r in beyond),
+        of_them_within_tols_shared=sum(r["shared"][1] < TOLS_TRAIN["grad"]
+                                       and r["shared"][2] < TOLS_TRAIN["loss"]
+                                       for r in beyond),
+        steps_with_a_leaky_flip=sum(r["leaky_flips"] > 0 for r in rows),
+        worst_k1_only=max(r["k1_only"][1] for r in rows),
+        worst_k1_only_with_a_leaky_flip=max(
+            [r["k1_only"][1] for r in rows if r["leaky_flips"] > 0], default=None),
+        worst_k1_only_without=max(
+            [r["k1_only"][1] for r in rows if r["leaky_flips"] == 0], default=None),
+        worst_shared=max(r["shared"][1] for r in rows),
+        worst_leaky_kink=max(r["leaky_kink"] for r in rows), tols=TOLS_TRAIN)))
 
 
 def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None):
@@ -2551,6 +2943,8 @@ def main():
     # the dist phase's ranks (Ranks)
     ap.add_argument("--dist-only", action="store_true",
                     help="build, then run only the dist phase (no result line)")
+    ap.add_argument("--flip-probe", type=int, metavar="WINDOWS",
+                    help="build, then run only flip_probe over WINDOWS windows (no result line)")
     ap.add_argument("--dist-rank", choices=("trainer", "steps"), help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2621,6 +3015,12 @@ def main():
         print(f"seconds per phase: {json.dumps(phase_s)}")
         print(gpu_name_and_power_limit())
         return
+    if args.flip_probe:
+        timed_phase("flip_probe", flip_probe, torch, fused_gn, soft_dtw, trainer_mod,
+                    distributions, DataLoader, AttrDict, load_model, args.flip_probe)
+        print(f"seconds per phase: {json.dumps(phase_s)}")
+        print(gpu_name_and_power_limit())
+        return
     parent = parent_k3 = None
     if args.parent:
         with ThreadPoolExecutor(2) as pool:
@@ -2681,6 +3081,9 @@ def main():
                 "train_bf16", TOLS_TRAIN_BF16)
     eval_k1 = timed_phase("eval", eval_phase, torch, fused_gn, soft_dtw, model, cpu_model,
                           trainer.val_loader.dataset, DataLoader, AttrDict)
+    timed_phase("eval_extras", eval_extras_phase, torch)
+    finetune_launches = timed_phase("finetune", finetune_phase, torch, fused_gn, soft_dtw,
+                                    trainer_mod)
     plan_k1 = timed_phase("plan", plan_phase, torch, fused_gn, soft_dtw, AttrDict)
     dist_launches = timed_phase("dist", dist_phase, torch, fused_gn, soft_dtw, model,
                                 load_model, AttrDict, distributions, DataLoader,
@@ -2701,21 +3104,25 @@ def main():
         line("gn_lrelu_fwd", k1_rows, [CEM_BATCH * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:97",
              dict(serve=serve_launches, train=train_k1, train_adaptive=ad_k1,
-                  serve_bf16=serve16_k1, train_bf16=train16_k1, eval=eval_k1, plan=plan_k1,
+                  serve_bf16=serve16_k1, train_bf16=train16_k1, **eval_k1, plan=plan_k1,
+                  **{k: v[0] for k, v in finetune_launches.items()},
                   **{f"h5_train_{n}": v[0] for n, v in h5_launches.items()},
                   **{k: v[0] for k, v in base_launches.items()},
                   **{k: v[0] for k, v in dist_launches.items()})),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
              dict(serve=0, train=train_k2, train_adaptive=ad_k2, serve_bf16=0,
-                  train_bf16=train16_k2, eval=0, plan=0,
+                  train_bf16=train16_k2, **{k: 0 for k in eval_k1}, plan=0,
+                  **{k: v[1] for k, v in finetune_launches.items()},
                   **{f"h5_train_{n}": v[1] for n, v in h5_launches.items()},
                   **{k: v[1] for k, v in base_launches.items()},
                   **{k: v[1] for k, v in dist_launches.items()})),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
              dict(serve=0, train=0, train_adaptive=ad_k3, serve_bf16=0, train_bf16=0,
-                  eval=0, plan=0, **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()},
+                  **{k: 0 for k in eval_k1}, plan=0,
+                  **{k: v[2] for k, v in finetune_launches.items()},
+                  **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()},
                   **{k: v[2] for k, v in base_launches.items()},
                   **{k: v[2] for k, v in dist_launches.items()}),
              source=soft_dtw.SOURCE),

@@ -250,3 +250,70 @@ def test_bc_policy_defaults_to_the_card(monkeypatch, tmp_path):
         BehavioralCloningPolicy(dict(T=10), conf)
     policy = BehavioralCloningPolicy(dict(T=10, device="cpu"), conf)  # asked for the CPU
     assert next(policy.model.parameters()).device.type == "cpu"
+
+
+_EXTRAS_SCRIPT = """
+import sys, tempfile
+from pathlib import Path
+sys.modules["cv2"] = None  # an import of OpenCV fails
+import numpy as np
+import torch
+from video_gcp_torch.evaluation import fvd, lpips, visualization
+from video_gcp_torch.evaluation.eval_binding import greedy_exist_select, greedy_l2_match
+from video_gcp_torch.models import dlm
+from video_gcp_torch.models.nets import RecurrentSeqEncoder
+from video_gcp_torch.planning.infra.envs.multiroom2d import EgocentricMultiroom2dEnv
+from video_gcp_torch.training import finetune_inv_mdl
+
+d = Path(tempfile.mkdtemp())
+rng = np.random.RandomState(0)
+seqs = np.tanh(rng.randn(6, 4, 3, 16, 16)).astype(np.float32)
+np.save(d / "gt_seq_0.npy", seqs)
+np.save(d / "gen_images_0.npy", seqs[::-1].copy())
+assert np.isfinite(fvd.compute_fvd(str(d / "gt_seq_0.npy"), str(d / "gen_images_0.npy"),
+                                   device="cpu"))
+assert np.isfinite(lpips.compute_lpips(str(d / "gt_seq_0.npy"), str(d / "gen_images_0.npy"),
+                                       device="cpu"))
+env = EgocentricMultiroom2dEnv(dict(n_rooms=9, fpv_img_size=16, fpv_textures="procedural"))
+obs, _ = env.reset()
+assert obs.images.shape == (1, 16, 16, 3)
+assert visualization.plot_balanced_tree(np.zeros((1, 7, 4, 4, 3))).shape == (12, 16, 3)
+assert greedy_exist_select(torch.rand(2, 7), torch.tensor([3, 9]), 10).sum() == 4 + 7
+assert greedy_l2_match(torch.rand(2, 7, 5), torch.tensor([4, 2]), 3)[0].shape == (2, 7)
+enc = RecurrentSeqEncoder(dict(nz_enc=4), bidirectional=True)
+assert enc(torch.zeros(2, 3, 4)).shape == (2, 3, 4)
+raw = torch.zeros(1, 2, 2, dlm.n_dlm_channels(3))
+assert dlm.sample(raw, torch.Generator().manual_seed(0), 3).shape == (1, 2, 2, 3)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "video_gcp_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_eval_extras_fpv_and_finetune_import_no_jax_or_opencv():
+    """FVD, LPIPS (their proxies end to end on the CPU), the plots, the
+    greedy schemes, the recurrent sequence encoder, dlm.sample, the
+    first-person env and the fine-tune load no jax, flax or video_gcp_tpu,
+    and need no OpenCV."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("GCP_DATA_DIR", None)
+    env.pop("GCP_I3D_WEIGHTS", None)
+    env.pop("GCP_LPIPS_WEIGHTS", None)
+    proc = subprocess.run([sys.executable, "-c", _EXTRAS_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("module, argv", [
+    ("evaluation.fvd", ["."]),
+    ("evaluation.lpips", ["."]),
+    ("training.finetune_inv_mdl", ["--path", "experiments/prediction/toy_random/gcp_tree_widegap",
+                                   "--base", "none", "--epochs", "1"]),
+])
+def test_eval_extras_and_finetune_default_to_the_card(monkeypatch, module, argv):
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = importlib.import_module(f"video_gcp_torch.{module}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)

@@ -158,3 +158,61 @@ def test_conv_seq_encoder():
     got = _port(t_nets.build_seq_encoder(dict(HP, seq_enc="conv")), v)(
         torch.from_numpy(seq))
     _close(got, enc.apply(v, jnp.asarray(seq)))
+
+
+@pytest.mark.parametrize("kind, kernel", [("conv", 2), ("conv", 4), ("lstm", 3),
+                                          ("bi-lstm", 3)])
+def test_seq_encoders(kind, kernel):
+    """The even-kernel conv encoder (XLA's 'SAME' pads one more at the end)
+    and the recurrent encoders, one LSTM or a reversed second pass kept in
+    time order and merged by a Dense (flax nn.RNN(OptimizedLSTMCell),
+    reverse=True, keep_order=True)."""
+    hp = dict(HP, seq_enc=kind, conv_inf_enc_kernel_size=kernel)
+    seq = _randn(2, 9, 32)
+    enc = (j_nets.ConvSeqEncoder(hp) if kind == "conv"
+           else j_nets.RecurrentSeqEncoder(hp, bidirectional=kind == "bi-lstm"))
+    v = _perturb(enc.init(KEY, jnp.asarray(seq)))
+    port = _port(t_nets.build_seq_encoder(hp), v)
+    got = port(torch.from_numpy(seq))
+    assert got.shape == (2, 9, 32)
+    _close(got, enc.apply(v, jnp.asarray(seq)))
+    # flax's cell has no input bias: the port's stays zero and frozen
+    assert not any(n.endswith("bias_ih") for n, p in port.named_parameters()
+                   if p.requires_grad)
+
+
+def test_conv_blocks_without_normalization():
+    """normalization='none': conv + LeakyReLU(0.2), no GroupNorm parameters
+    and so no fused-norm call (JAX nets.py:66-77)."""
+    hp = dict(HP, normalization="none")
+    img = np.tanh(_randn(3, 16, 16, 3))
+    enc, dec = j_nets.ConvEncoder(hp), j_nets.ConvDecoder(hp)
+    ve = _perturb(enc.init(KEY, jnp.asarray(img)))
+    e_j, skips_j = enc.apply(ve, jnp.asarray(img))
+    vd = _perturb(dec.init(KEY, e_j, skips_j))
+    t_enc, t_dec = _port(t_nets.ConvEncoder(hp), ve), _port(t_nets.ConvDecoder(hp), vd)
+    assert not any("group_norm" in n for n, _ in
+                   list(t_enc.named_parameters()) + list(t_dec.named_parameters()))
+    e_t, skips_t = t_enc(torch.from_numpy(img))
+    _close(e_t, e_j)
+    _close(t_dec(e_t, skips_t), dec.apply(vd, e_j, skips_j))
+
+
+def test_dlm_sample_with_jax_draws():
+    """dlm.sample's deterministic core on JAX's own draws (dlm.py:96-101):
+    the mixture indices and the uniforms of the same key."""
+    from video_gcp_torch.models import dlm as t_dlm
+    from video_gcp_tpu.models import dlm as j_dlm
+
+    raw = _randn(2, 4, 4, n_dlm_channels(3))
+    key = jax.random.PRNGKey(3)
+    want = j_dlm.sample(jnp.asarray(raw), key, 3)
+    k1, k2 = jax.random.split(key)
+    logits = jnp.asarray(raw)[..., :t_dlm.N_MIX]
+    idx = jax.random.categorical(k1, logits, axis=-1)
+    u = jax.random.uniform(k2, raw.shape[:-1] + (3,), minval=1e-5, maxval=1 - 1e-5)
+    got = t_dlm.sample_with(torch.from_numpy(raw), torch.from_numpy(np.array(idx)),
+                            torch.from_numpy(np.array(u)), 3)
+    _close(got, want)
+    drawn = t_dlm.sample(torch.from_numpy(raw), torch.Generator().manual_seed(0), 3)
+    assert drawn.shape == (2, 4, 4, 3) and bool(drawn.abs().max() <= 1)

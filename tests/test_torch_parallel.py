@@ -34,6 +34,7 @@ held at 1e-5 absolute (SPLIT_TOL): not bit for bit, because the CPU's
 kernels block their work by the batch size (a chunk of 3 rows against a
 call of 5 differ by up to 8.2e-7).
 """
+import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -441,7 +442,10 @@ def test_torchrun_trainer_two_ranks(ref, world2):
     assert res[1]["stdout"] == ""
     exp = ref["tmp"] / "trainer" / "prediction/toy_random/gcp_tree"
     events = sorted(p.name for p in (exp / "events").iterdir())
-    assert len(events) == 1, events
+    assert events == ["events.jsonl", "images"], events  # the log and rank 0's val images
+    records = [json.loads(line) for line in open(exp / "events/events.jsonl")]
+    tags = [r["tag"] for r in records if "file" in r]
+    assert tags and len(tags) == len(set(tags)), tags  # each image logged once
     assert ckpt.get_epochs(exp) == [0]
     from video_gcp_torch.training.config import build_hparams, load_config
     model = TorchTree(build_hparams(load_config(REPO / TRAINER_CONF)))

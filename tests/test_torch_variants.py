@@ -381,3 +381,25 @@ def test_bc_trains_through_the_trainer(monkeypatch, tmp_path):
              if not torch.equal(p.detach(), before[n])}
     assert {"head.weight", "lstm.optimized_lstm_cell.0.weight_ih"} <= moved
     assert len(moved) > len(before) // 2
+
+
+@pytest.mark.parametrize("over", [dict(normalization="none"),
+                                  dict(seq_enc="conv", conv_inf_enc_kernel_size=4),
+                                  dict(seq_enc="bi-lstm")],
+                         ids=["no_norm", "even_kernel", "bi_lstm"])
+def test_hparam_branches_tree_matches_jax(monkeypatch, over):
+    """hparam branches the published configs leave at their defaults, on a
+    small tree: normalization='none' (LeakyReLU alone, no fused norm), an
+    even conv_inf_enc_kernel_size (XLA's asymmetric 'SAME') and the
+    bidirectional recurrent sequence encoder; the prior with injected z and
+    one train step's losses and gradients."""
+    hp = _hp(**TREE, **over)
+    batch = _batch()
+    jmodel, params, tmodel = _pair(JaxTree, TorchTree, hp, batch)
+    z = np.random.RandomState(1).randn(B, 2 ** TREE["hierarchy_levels"] - 1,
+                                       hp["nz_vae"]).astype(np.float32)
+    j_out, t_out = _prior(jmodel, params, tmodel,
+                          dict({k: batch[k] for k in ("I_0", "I_g", "end_ind")}, z=z))
+    for k in ("images", "e_g_prime"):
+        assert _max_diff(t_out.tree[k], j_out.tree[k]) < OUT_TOL, k
+    _train_step_matches(monkeypatch, jmodel, params, tmodel, batch, SharedNoise)

@@ -9,10 +9,18 @@ For a tree:
 - 'pruned_dtw': the nodes the existence predictor keeps, compacted to the
   front (the tail repeats the last kept node), then the DTW warp
   (BalancedPrunedDTWBinding:209-219).
+- 'greedy_exist': a priority expansion from the root by existence
+  probability, emitted in depth-first order (GreedyExistEvalBinding:48-70);
+  needs no ground-truth frames.
+- 'greedy_l2': each node, root down, claims the least-L2 frame of its
+  segment and its children split the rest; frames no node claimed take the
+  previous claimed frame's node, or the next one before the first
+  (GreedyL2EvalBinding:73-120, whose `tree.min_l2_match` exists nowhere in
+  the reference: this is the JAX package's reading of its intent).
 
-'greedy_exist' and 'greedy_l2' are not ported (ROADMAP item 7.4): the
-reference's own dispatch does not reach them (tree_dense_rec.py:30-39).
-For the sequential model, 'basic' is the rollout as it is and 'dtw' warps
+The reference's own dispatch reaches neither greedy scheme
+(tree_dense_rec.py:30-39); the JAX package wires both, and so does the
+port. For the sequential model, 'basic' is the rollout as it is and 'dtw' warps
 its frames 1..end onto the GT timeline (sequential_dense_sample).
 """
 from __future__ import annotations
@@ -23,8 +31,13 @@ import torch
 
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.models.binding import balanced_match_dists
+from video_gcp_torch.ops.cdist import batch_cdist
 from video_gcp_torch.ops.dtw import dtw_warp_sequence
-from video_gcp_torch.ops.tree_index import breadthfirst2depthfirst
+from video_gcp_torch.ops.tree_index import (
+    breadthfirst2depthfirst,
+    depthfirst2breadthfirst,
+    interleave,
+)
 
 
 def basic_timeline_index(depth: int, end_ind: torch.Tensor,
@@ -60,6 +73,88 @@ def _compact_selected_df(values_df: torch.Tensor, keep_df: torch.Tensor) -> torc
                          torch.where(pos < n_keep[:, None], pos, last))
 
 
+def greedy_exist_select(p_bf: torch.Tensor, end_ind: torch.Tensor,
+                        max_seq_len: int) -> torch.Tensor:
+    """The reference's priority queue (GreedyExistEvalBinding,
+    evaluation_matching.py:48-70) batched: a [B, N] frontier over the
+    breadth-first tree, one masked argmax a pop (ties and an empty frontier
+    take the first index, as jnp.argmax), the popped node's children pushed;
+    end_ind + 1 pops per example. Returns the [B, N] bool selection, bf."""
+    b, n = p_bf.shape
+    dev = p_bf.device
+    parent = torch.div(torch.arange(n, device=dev) - 1, 2, rounding_mode="floor")
+    not_root = (torch.arange(n, device=dev) >= 1)[None, :]
+    length = end_ind + 1
+    frontier = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    frontier[:, 0] = True
+    selected = torch.zeros_like(frontier)
+    neg_inf = torch.full_like(p_bf, -math.inf)
+    for t in range(min(max_seq_len, n)):
+        pick = torch.argmax(torch.where(frontier, p_bf, neg_inf), dim=1)
+        onehot = (torch.nn.functional.one_hot(pick, n).bool()
+                  & (t < length)[:, None] & frontier.any(1)[:, None])
+        selected |= onehot
+        frontier = (frontier & ~onehot) | (onehot[:, parent] & not_root)
+    return selected
+
+
+def greedy_l2_match(cost: torch.Tensor, end_ind: torch.Tensor, depth: int):
+    """Root down, level by level (JAX eval_binding.py:109-148): each node
+    claims the least-cost frame of its segment [lo, hi] (the root's is
+    [0, end_ind]); its children get [lo, m - 1] and [m + 1, hi], and an
+    empty segment stays empty below. cost [B, N, T] in bf node order;
+    returns (match_t [B, N] int64, valid [B, N] bool), bf."""
+    b, n, t = cost.shape
+    dev = cost.device
+    t_idx = torch.arange(t, device=dev)[None, None, :]
+    lo = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    hi = torch.zeros_like(lo)
+    hi[:, 0] = end_ind
+    match_t = torch.zeros_like(lo)
+    valid = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    inf = torch.full_like(cost[:, :1], math.inf)
+    for level in range(depth):
+        sl = slice(2 ** level - 1, 2 ** (level + 1) - 1)
+        lo_l, hi_l = lo[:, sl], hi[:, sl]
+        ok = lo_l <= hi_l
+        seg = (t_idx >= lo_l[:, :, None]) & (t_idx <= hi_l[:, :, None])
+        m = torch.argmin(torch.where(seg, cost[:, sl], inf), dim=2)
+        match_t[:, sl] = m
+        valid[:, sl] = ok
+        if level + 1 < depth:
+            csl = slice(2 ** (level + 1) - 1, 2 ** (level + 2) - 1)
+            one, zero = torch.ones_like(m), torch.zeros_like(m)
+            lo[:, csl] = interleave(torch.where(ok, lo_l, one), torch.where(ok, m + 1, one))
+            hi[:, csl] = interleave(torch.where(ok, m - 1, zero), torch.where(ok, hi_l, zero))
+    return match_t, valid
+
+
+def _greedy_l2_timeline(images_bf: torch.Tensor, traj_seq: torch.Tensor,
+                        end_ind: torch.Tensor) -> torch.Tensor:
+    """The bf node of each frame under greedy_l2_match, [B, T]; frames no
+    node claimed take the previous claimed frame's node (the next one's
+    before the first claim)."""
+    depth = int(math.log2(images_bf.shape[1] + 1))
+    cost = batch_cdist(images_bf, traj_seq)  # [B, N, T]
+    match_t, valid = greedy_l2_match(cost, end_ind, depth)
+    b, n, t = cost.shape
+    dev = cost.device
+    # valid nodes claim disjoint frames (their segments nest); the invalid
+    # ones write into a slot past the end, which is dropped
+    frame_node = torch.full((b, t + 1), -1, dtype=torch.int64, device=dev)
+    frame_node[torch.arange(b, device=dev)[:, None],
+               torch.where(valid, match_t, torch.full_like(match_t, t))] = \
+        torch.arange(n, device=dev).expand(b, n)
+    frame_node = frame_node[:, :t]
+    has = frame_node >= 0
+    t_idx = torch.arange(t, device=dev).expand(b, t)
+    prev_t = torch.cummax(torch.where(has, t_idx, torch.full_like(t_idx, -1)), 1).values
+    next_t = torch.flip(torch.cummin(torch.flip(
+        torch.where(has, t_idx, torch.full_like(t_idx, t)), [1]), 1).values, [1])
+    src = torch.where(prev_t >= 0, prev_t, torch.clamp(next_t, 0, t - 1))
+    return torch.clamp(torch.gather(frame_node, 1, torch.clamp(src, 0, t - 1)), 0, n - 1)
+
+
 def tree_dense_sample(outputs: AttrDict, inputs: AttrDict, scheme: str,
                       max_seq_len: int) -> torch.Tensor:
     """GT-timeline-aligned dense prediction [B, T, ...] from a tree output.
@@ -75,10 +170,20 @@ def tree_dense_sample(outputs: AttrDict, inputs: AttrDict, scheme: str,
     if scheme == "pruned_dtw":
         kept = _compact_selected_df(breadthfirst2depthfirst(images_bf), outputs.prune_keep)
         return dtw_warp_sequence(kept, inputs.traj_seq, end_ind)[0]
-    if scheme in ("greedy_exist", "greedy_l2"):
-        raise NotImplementedError(
-            f"pruning scheme {scheme!r} is not ported (ROADMAP item 7.4); the "
-            "reference's dispatch reaches only 'basic', 'dtw' and 'pruned_dtw'")
+    if scheme == "greedy_exist":
+        if "existence_logits" not in outputs:
+            raise ValueError("greedy_exist needs the balanced existence predictor "
+                             "(outputs.existence_logits); adaptive models expose "
+                             "distance_logits instead")
+        p_bf = depthfirst2breadthfirst(torch.sigmoid(outputs.existence_logits))
+        selected_df = breadthfirst2depthfirst(greedy_exist_select(p_bf, end_ind, max_seq_len))
+        seq = _compact_selected_df(breadthfirst2depthfirst(images_bf), selected_df)
+        # on the GT timeline's length, the tail repeating the last kept node
+        pos = torch.clamp(torch.arange(max_seq_len, device=seq.device), 0, seq.shape[1] - 1)
+        return seq[:, pos]
+    if scheme == "greedy_l2":
+        return _gather_nodes(images_bf, _greedy_l2_timeline(images_bf, inputs.traj_seq,
+                                                            end_ind))
     raise ValueError(f"unknown pruning scheme {scheme!r}")
 
 

@@ -26,6 +26,16 @@ def set_float32_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def require_device(device, caller: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises
+    rather than fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}: no CUDA device; pass device='cpu' to run on "
+                           "the CPU")
+    return device
+
+
 def load_model(conf_dir, weights=None, device="cuda", dtype=torch.float32,
                compute_dtype=None):
     """The model of `<conf_dir>/conf.py` in eval mode on `device`, with
@@ -42,10 +52,7 @@ def load_model(conf_dir, weights=None, device="cuda", dtype=torch.float32,
             f"load_model: parameters in {dtype}; the reference keeps float32 "
             "parameters. For bf16 compute over float32 parameters pass "
             "compute_dtype=torch.bfloat16")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("load_model: no CUDA device; pass device='cpu' to "
-                           "run on the CPU")
+    device = require_device(device, "load_model")
     set_float32_precision()
     bundle = load_config(conf_dir)
     model = bundle.configuration["model"](build_hparams(bundle), dtype=compute_dtype)

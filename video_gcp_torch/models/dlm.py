@@ -1,7 +1,7 @@
 """Discretized logistic mixture decoder output (models/dlm.py of the JAX
-package): the parameter split, the per-pixel NLL and the mixture mean. Raw
-layout on the last axis: [n_mix logits | n_mix*C means | n_mix*C log_scales].
-Pixels are in [-1, 1] with 256 bins."""
+package): the parameter split, the per-pixel NLL, the mixture mean and the
+ancestral sample. Raw layout on the last axis: [n_mix logits | n_mix*C
+means | n_mix*C log_scales]. Pixels are in [-1, 1] with 256 bins."""
 from __future__ import annotations
 
 import math
@@ -60,3 +60,29 @@ def nll(raw: torch.Tensor, target: torch.Tensor, n_mix: int = N_MIX) -> torch.Te
                                 log_pdf_mid - math.log(127.5))))
     log_probs = log_prob_bin.sum(-1) + F.log_softmax(logits, -1)
     return -torch.logsumexp(log_probs, dim=-1)
+
+
+def sample_with(raw: torch.Tensor, idx: torch.Tensor, u: torch.Tensor,
+                n_channels: int, n_mix: int = N_MIX) -> torch.Tensor:
+    """The ancestral sample from given draws: `idx` [...] the mixture
+    component of each pixel, `u` [..., C] uniforms in (0, 1) for the
+    logistic noise; clipped to [-1, 1]."""
+    _, means, log_scales = split_params(raw, n_channels, n_mix)
+    sel = F.one_hot(idx.long(), n_mix).to(means.dtype)[..., None]
+    mu = torch.sum(sel * means, -2)
+    log_s = torch.sum(sel * log_scales, -2)
+    x = mu + torch.exp(log_s) * (torch.log(u) - torch.log(1 - u))
+    return torch.clamp(x, -1.0, 1.0)
+
+
+def sample(raw: torch.Tensor, generator: torch.Generator, n_channels: int,
+           n_mix: int = N_MIX) -> torch.Tensor:
+    """Ancestral sample (JAX dlm.py:92): a mixture component per pixel from
+    its logits, then logistic noise from uniforms in [1e-5, 1 - 1e-5]. The
+    draws come from `generator`, so they are not JAX's."""
+    logits = raw[..., :n_mix]
+    idx = torch.multinomial(torch.softmax(logits.reshape(-1, n_mix).float(), -1), 1,
+                            generator=generator).reshape(logits.shape[:-1])
+    u = torch.rand(raw.shape[:-1] + (n_channels,), generator=generator,
+                   device=raw.device, dtype=raw.dtype) * (1 - 2e-5) + 1e-5
+    return sample_with(raw, idx, u, n_channels, n_mix)

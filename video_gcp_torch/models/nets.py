@@ -1,7 +1,8 @@
-"""Network building blocks (models/nets.py of the JAX package), main-path
-subset: GroupNorm+LeakyReLU, MLP, conv encoder/decoder pyramids, Gaussian
-heads, the packed-state LSTM and ConvLSTM stacks, the conv sequence encoder
-and the time-masked multi-head attention of the attentive inference.
+"""Network building blocks (models/nets.py of the JAX package):
+GroupNorm+LeakyReLU (or LeakyReLU alone under normalization='none'), MLP,
+conv encoder/decoder pyramids, Gaussian heads, the packed-state LSTM and
+ConvLSTM stacks, the conv and recurrent sequence encoders and the
+time-masked multi-head attention of the attentive inference.
 
 Images are NHWC at every public function, as in the JAX package. A conv layer
 sees the same memory as an NCHW tensor in `torch.channels_last` (a permuted
@@ -95,16 +96,37 @@ class GroupNorm(nn.Module):
                                       self.negative_slope)
 
 
+class LeakyReLU(nn.Module):
+    """The conv blocks' activation under normalization='none' (no
+    parameters, no kernel launch)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _leaky(x)
+
+
 def _norm_act(hp, ch: int) -> nn.Module:
     """The conv blocks' norm+LeakyReLU: groups start at 8 and halve until
-    they divide the channel count."""
+    they divide the channel count; 'none' is the LeakyReLU alone (JAX
+    nets.py:66-77)."""
     if hp.get("normalization", "group") != "group":
-        raise NotImplementedError(
-            f"normalization={hp['normalization']!r}: only 'group' is ported")
+        return LeakyReLU()
     groups = 8
     while ch % groups:
         groups //= 2
     return GroupNorm(groups, ch)
+
+
+def pad_same(x: torch.Tensor, kernels, strides, value: float = 0.0) -> torch.Tensor:
+    """x padded for a VALID conv or pool that then gives XLA's "SAME"
+    result; `kernels` and `strides` name x's last len(kernels) axes. Each
+    axis keeps ceil(size / stride) outputs, and an odd total pad puts the
+    extra element at the end (a stride-2 k=7 conv on an even length pads
+    (2, 3))."""
+    pads = []
+    for size, k, s in reversed(list(zip(x.shape[-len(kernels):], kernels, strides))):
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads, value=value) if any(pads) else x
 
 
 def _n_levels(hp) -> int:
@@ -381,26 +403,65 @@ def lstm_state_size(hp) -> int:
 
 
 class ConvSeqEncoder(Casting, nn.Module):
-    """1-D temporal conv (k=3, 'SAME' = padding 1) + LeakyReLU over per-frame
-    latents [B, T, D] (blox ConvSeqEncodingModule)."""
+    """1-D temporal conv + LeakyReLU over per-frame latents [B, T, D] (blox
+    ConvSeqEncodingModule), 'SAME' padded: (k // 2) a side for an odd
+    kernel, one more at the end for an even one."""
 
     def __init__(self, hp):
         super().__init__()
-        k = hp.get("conv_inf_enc_kernel_size", 3)
-        if k % 2 == 0:
-            raise NotImplementedError("even conv_inf_enc_kernel_size: 'SAME' "
-                                      "padding would be asymmetric")
+        self.k = hp.get("conv_inf_enc_kernel_size", 3)
         d = hp["nz_enc"]
         self.conv = nn.ModuleList(
-            nn.Conv1d(d, d, k, padding=k // 2)
-            for _ in range(hp.get("conv_inf_enc_layers", 1)))
+            nn.Conv1d(d, d, self.k) for _ in range(hp.get("conv_inf_enc_layers", 1)))
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:
         dt, pdt = self.dtypes(self.conv[0].weight)
         x = seq.transpose(1, 2).to(dt)
         for conv in self.conv:
-            x = _leaky(conv._conv_forward(x, conv.weight.to(dt), conv.bias.to(dt)))
+            x = _leaky(conv._conv_forward(pad_same(x, (self.k,), (1,)),
+                                          conv.weight.to(dt), conv.bias.to(dt)))
         return x.transpose(1, 2).to(pdt)
+
+
+class RecurrentSeqEncoder(Casting, nn.Module):
+    """An LSTM over time (blox RecurrentSeqEncodingModule; flax's
+    nn.RNN(OptimizedLSTMCell) from a zero state); bidirectional, a second
+    LSTM over the reversed sequence, its outputs put back in time order,
+    and a Dense over both (BidirectionalSeqEncodingModule). Each cell holds
+    an `nn.LSTMCell`'s weights, gates i, f, g, o; flax's cell has no input
+    bias, so `bias_ih` holds zeros and is frozen, as in LSTMStack."""
+
+    def __init__(self, hp, bidirectional: bool = False):
+        super().__init__()
+        size = hp["nz_enc"]
+        self.optimized_lstm_cell = nn.ModuleList(
+            nn.LSTMCell(size, size) for _ in range(2 if bidirectional else 1))
+        for cell in self.optimized_lstm_cell:
+            nn.init.zeros_(cell.bias_ih)
+            cell.bias_ih.requires_grad_(False)
+        if bidirectional:
+            self.dense = nn.ModuleList([nn.Linear(2 * size, size)])
+
+    def _run(self, cell: nn.LSTMCell, x: torch.Tensor, dt: torch.dtype,
+             reverse: bool) -> torch.Tensor:
+        weights = [w.to(dt) for w in (cell.weight_ih, cell.weight_hh, cell.bias_ih,
+                                      cell.bias_hh)]
+        h = c = x.new_zeros(x.shape[0], cell.hidden_size)
+        steps = range(x.shape[1] - 1, -1, -1) if reverse else range(x.shape[1])
+        out = [None] * x.shape[1]
+        for t in steps:
+            h, c = torch.lstm_cell(x[:, t], (h, c), *weights)
+            out[t] = h
+        return torch.stack(out, 1)
+
+    def forward(self, seq: torch.Tensor) -> torch.Tensor:
+        dt, pdt = self.dtypes(self.optimized_lstm_cell[0].weight_hh)
+        x = seq.to(dt)
+        out = self._run(self.optimized_lstm_cell[0], x, dt, reverse=False)
+        if len(self.optimized_lstm_cell) == 2:
+            out_b = self._run(self.optimized_lstm_cell[1], x, dt, reverse=True)
+            out = linear(self.dense[0], torch.cat([out, out_b], -1), dt)
+        return out.to(pdt)
 
 
 def build_seq_encoder(hp) -> Optional[nn.Module]:
@@ -410,9 +471,7 @@ def build_seq_encoder(hp) -> Optional[nn.Module]:
     if kind == "conv":
         return ConvSeqEncoder(hp)
     if kind in ("lstm", "bi-lstm"):
-        raise NotImplementedError(
-            f"seq_enc={kind!r} (RecurrentSeqEncoder) is not ported: no config "
-            "of the repository uses it (ROADMAP.md, modules still missing)")
+        return RecurrentSeqEncoder(hp, bidirectional=kind == "bi-lstm")
     raise ValueError(f"unknown seq_enc {kind!r}")
 
 

@@ -167,11 +167,15 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
     optimizer step. Returns the metrics as tensors on the model's device
     (no host sync): every loss value, `grads_finite`, `grad_norm`, and the
     per-level means of the node-axis breakdowns (`kl_layerwise`, ...).
+    In one process the finite mask and `grad_norm` cover every gradient of
+    the model, and the clip and the step the optimizer's parameters: an
+    optimizer over a subset is optax's `multi_transform` with `set_to_zero`
+    for the rest.
 
     With `mesh` (a DeviceMesh over every rank of the process group) `batch`
     is this rank's rows of the global batch, the gradients are reduced over
     the ranks first and the metrics are the global batch's."""
-    optimizer.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
     out = model(batch, phase="train", mode="posterior", generator=generator,
                 step=step)
     losses = out.losses
@@ -183,7 +187,10 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
             p.grad = torch.zeros_like(p)
     clip = optimizer.param_groups[0].get("gradient_clip")
     if mesh is None:
-        grads = [p.grad for p in params]
+        # every gradient, also of parameters the optimizer does not step
+        # (the inverse-model fine-tune's frozen trunk): the JAX step masks
+        # and measures all of them, and clips only what its optimizer sees
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
         grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         for g in grads:
             g.masked_fill_(~grads_finite, 0.0)

@@ -11,7 +11,9 @@ available (multiroom2d_layout.py:195-295) and fall back to deterministic flat
 colors otherwise.
 
 A numpy copy of planning/infra/envs/layout.py of the JAX package; the walls
-are drawn with `raster.line` in place of `cv2.line`.
+are drawn with `raster.line` in place of `cv2.line`, and the texture pack's
+tiles are read and resized with `raster.read_png` and `raster.resize_linear`
+in place of `cv2.imread` and `cv2.resize`.
 """
 from __future__ import annotations
 
@@ -334,19 +336,19 @@ def draw_layout_overview(rooms_per_side, render_scale, texture_dir=None,
     room_px = int(res / rooms_per_side)
     img = np.ones((res, res, 3), dtype=np.float32)
 
-    if add_textures and texture_dir:
-        raise NotImplementedError(
-            f"textured rooms ({texture_dir}) are not ported: the texture "
-            "pack's bilinear resize has no copy in raster.py (ROADMAP.md "
-            "queue 1, item 15); unset GCP_DATA_DIR's textures to draw flat "
-            "colours")
+    textures = load_textures(texture_dir) if texture_dir else None
     if add_textures:
         for x in range(rooms_per_side):
             for y in range(rooms_per_side):
                 tile_idx = x * rooms_per_side + y
+                if textures is not None:  # the pack's PNG, cv2.resize's bilinear
+                    tex = raster.read_png(os.path.join(
+                        texture_dir, textures[tile_idx % len(textures)]))
+                    tile = raster.resize_linear(tex, room_px, room_px) / 255.0
+                else:
+                    tile = _flat_room_colors(rooms_per_side ** 2)[tile_idx]
                 img[y * room_px:(y + 1) * room_px,
-                    x * room_px:(x + 1) * room_px] = \
-                    _flat_room_colors(rooms_per_side ** 2)[tile_idx]
+                    x * room_px:(x + 1) * room_px] = tile
 
     segments, _ = wall_segments(rooms_per_side)
     for x0, y0, x1, y1 in segments:

@@ -12,6 +12,8 @@ TopdownMultiroom3dEnv variant whose observations are cv2 top-down renders
   eval metrics, and the reference's top-down renderers.
 - TopdownMultiroom2dEnv: image observations = cropped top-down renders around
   the agent — the drop-in equivalent of TopdownMultiroom3dEnv.
+- EgocentricMultiroom2dEnv: first-person observations from the raycaster in
+  fpv.py, the reference's Multiroom3dEnv camera mode.
 
 A real gym-miniworld 3-D env can still be wrapped by subclassing and
 overriding reset/step (kept as an optional host dependency, as the reference
@@ -372,13 +374,29 @@ class Multiroom2dEnv(BaseEnv):
 
 
 class EgocentricMultiroom2dEnv(Multiroom2dEnv):
-    """First-person RGB observations (the JAX package's raycaster in
-    planning/infra/envs/fpv.py). Not ported: no experiment config uses it."""
+    """First-person RGB observations: the reference's Multiroom3dEnv camera
+    mode (multiroom3d_env.py:85-99, gym-miniworld OpenGL) served by the
+    raycaster in fpv.py. States, actions and goals are the base env's; only
+    `obs.images` changes."""
 
     def __init__(self, hp, reset_state=None, no_env=False, crop_window=None):
-        raise NotImplementedError(
-            "EgocentricMultiroom2dEnv needs the first-person renderer fpv.py, "
-            "which is not ported (ROADMAP.md queue 1, item 15)")
+        super().__init__(hp, reset_state, no_env, crop_window)
+        from video_gcp_torch.planning.infra.envs.fpv import FirstPersonRenderer
+
+        self._fpv = FirstPersonRenderer(
+            self._rooms_per_side, img_size=int(self._hp.fpv_img_size),
+            textures=self._hp.fpv_textures)
+
+    def _default_hparams(self):
+        hp = super()._default_hparams()
+        hp["fpv_img_size"] = 64
+        # 'off' matches the published flat-colour datasets; 'auto' gives the
+        # miniworld textured look (the PNG pack when on disk, else procedural)
+        hp["fpv_textures"] = "off"
+        return hp
+
+    def _render_obs(self):
+        return self._fpv.render(self.current_pos[:2], self.current_pos[2], self.goal_pos)
 
 
 class TopdownMultiroom2dEnv(Multiroom2dEnv):

@@ -27,9 +27,12 @@ and nothing more:
 - `resize_linear`: `cv2.resize`'s default INTER_LINEAR on float32 images
   (the h5 benchmark agent's goal image), with OpenCV's coordinate map,
   its border clamping and its switch to INTER_AREA for an exact 2x
-  downscale.
-- `write_png` / `read_png`: 8-bit RGB PNG through zlib; reading takes
-  every filter type.
+  downscale; on uint8 images (the texture pack's tiles) its fixed-point
+  path: 11-bit weights rounded one by one, the rows clamped only in the
+  horizontal pass, and the vertical pass's SIMD rounding.
+- `write_png` / `read_png`: 8-bit PNG through zlib; `read_png` is
+  `cv2.imread(path)[:, :, ::-1]`: grey, RGB, palette and alpha images
+  (alpha dropped), every filter type, as [H, W, 3] uint8 RGB.
 
 tests/test_torch_planning_infra.py holds each against OpenCV.
 """
@@ -336,13 +339,18 @@ def _area_upscale_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
     y0, y1, b0, b1 = _area_up_table(h, height)
     src = img.reshape(h, w, -1).astype(np.int32)
     rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]  # exact
+    return _vertical_u8(rows, y0, y1, b0, b1).reshape((height, width) + img.shape[2:])
 
-    def mul_hi(r, b):  # the 16-bit SIMD product's high half of (r >> 4) * b
+
+def _vertical_u8(rows, y0, y1, b0, b1) -> np.ndarray:
+    """OpenCV's uint8 vertical pass over horizontally weighted rows
+    ([H, W', C] int32, 11-bit weights): the 16-bit SIMD product's high half
+    of (r >> 4) * b for both source rows, then (sum + 2) >> 2."""
+    def mul_hi(r, b):
         return (np.minimum(r >> 4, 32767) * b[:, None, None]) >> 16
 
     out = mul_hi(rows[y0], b0) + mul_hi(rows[y1], b1)
-    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8).reshape(
-        (height, width) + img.shape[2:])
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def _linear_table(src: int, dst: int):
@@ -357,15 +365,38 @@ def _linear_table(src: int, dst: int):
     return s, np.minimum(s + 1, src - 1), np.float32(1.0) - f, f
 
 
+def _linear_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """OpenCV's INTER_LINEAR on uint8 (resizeGeneric_ with HResizeLinear and
+    the uchar VResizeLinear): each weight rounded to 11 bits on its own;
+    across columns the map is clamped at the borders (weight 1 on the edge
+    pixel), across rows only the source rows are clamped, so an edge row
+    takes both unclamped weights."""
+    h, w = img.shape[:2]
+    x0, x1, a0, a1 = _linear_table(w, width)
+    a0 = np.rint(a0 * np.float32(_COEF_ONE)).astype(np.int32)
+    a1 = np.rint(a1 * np.float32(_COEF_ONE)).astype(np.int32)
+    fy = ((np.arange(height) + 0.5) * (1.0 / (height / h)) - 0.5).astype(np.float32)
+    sy = np.floor(fy).astype(np.int64)
+    fy = fy - sy.astype(np.float32)
+    b0 = np.rint((np.float32(1) - fy) * np.float32(_COEF_ONE)).astype(np.int32)
+    b1 = np.rint(fy * np.float32(_COEF_ONE)).astype(np.int32)
+    y0, y1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    src = img.reshape(h, w, -1).astype(np.int32)
+    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+    return _vertical_u8(rows, y0, y1, b0, b1).reshape((height, width) + img.shape[2:])
+
+
 def resize_linear(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """`cv2.resize(img, (width, height))` (INTER_LINEAR) for an [H, W] or
-    [H, W, C] float32 image."""
+    [H, W, C] float32 or uint8 image."""
     img = np.asarray(img)
-    if img.dtype != np.float32:
-        raise ValueError(f"raster.resize_linear takes float32 images, not {img.dtype}")
+    if img.dtype not in (np.float32, np.uint8):
+        raise ValueError(f"raster.resize_linear takes float32 or uint8 images, not {img.dtype}")
     h, w = img.shape[:2]
     if (h, w) == (2 * height, 2 * width):  # OpenCV takes INTER_AREA here
         return resize_area(img, width, height)
+    if img.dtype == np.uint8:
+        return _linear_u8(img, width, height)
     x0, x1, a0, a1 = _linear_table(w, width)
     y0, y1, b0, b1 = _linear_table(h, height)
     src = img.reshape(h, w, -1)
@@ -429,20 +460,26 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples per pixel by colour type
+
+
 def read_png(path) -> np.ndarray:
-    """An 8-bit RGB, non-interlaced PNG (what OpenCV writes for a BGR image)
-    as [H, W, 3] uint8 RGB; every filter type is decoded."""
+    """`cv2.imread(path)[:, :, ::-1]` for an 8-bit, non-interlaced PNG:
+    [H, W, 3] uint8 RGB; grey is repeated over the channels, a palette
+    looked up, alpha dropped. Every filter type is decoded."""
     with open(path, "rb") as f:
         blob = f.read()
     if not blob.startswith(_PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, header = len(_PNG_SIGNATURE), [], None
+    pos, idat, header, palette = len(_PNG_SIGNATURE), [], None, None
     while pos < len(blob):
         (length,) = struct.unpack(">I", blob[pos:pos + 4])
         kind, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + length]
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
@@ -450,7 +487,15 @@ def read_png(path) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if (depth, ctype, interlace) != (8, _RGB, 0):
-        raise ValueError(f"{path}: only 8-bit RGB, non-interlaced PNGs are read "
+    if depth != 8 or ctype not in _CHANNELS or interlace:
+        raise ValueError(f"{path}: only 8-bit, non-interlaced PNGs are read "
                          f"(depth {depth}, colour type {ctype}, interlace {interlace})")
-    return _unfilter(zlib.decompress(b"".join(idat)), h, w * 3, 3).reshape(h, w, 3)
+    n = _CHANNELS[ctype]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * n, n).reshape(h, w, n)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError(f"{path}: a palette image without a PLTE chunk")
+        return palette[px[..., 0]]
+    if n <= 2:  # grey (+ alpha)
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])

@@ -35,14 +35,19 @@ config without a dataset take the synthetic RandomVideoDataset.
 Validation computes the loss values with the train-mode posterior
 (train.py:211-215) and, on the first `--val_metric_batches` batches, PSNR,
 SSIM and MSE of one prior sample (a tree's warped onto the GT timeline by
-DTW).
+DTW). Rank 0 logs images of each val pass into `events/images/`: of the
+first metric batch's prior sample the GT and predicted strips
+(`val_gt_vs_pred`), a GIF (`val_pred_gif`), the tree (`output_tree`) and
+the pruned nodes (`pruned_pred`), or for a state-space model its top-down
+overlay (`prediction_topdown`); of a train-mode posterior pass on the first
+val batch the GT-match overview (`gt_match_overview`), the head-averaged
+attention (`attention_masks`) and the regressed states drawn by the
+dataset's `render_trajectory` (`regressed_state_topdown`).
 `--metric 1` runs the Evaluator (top-of-100 with the configuration's
 `metric_pruning_scheme`) over the val set instead of training;
 `--val_sweep 1` validates every saved epoch; `--dataset_val_sweep 1`
 validates the current weights on each dataset of the configuration's
-`dataset_sweep_specs`, at its own horizon. The trainer's image logging,
-the datasets' `render_trajectory` among it, waits for the rest of the
-visualizations (ROADMAP item 13).
+`dataset_sweep_specs`, at its own horizon.
 """
 from __future__ import annotations
 
@@ -61,11 +66,13 @@ from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.metrics import mse, psnr, ssim, to_float_images
 from video_gcp_torch.data.datasets import GlobalSplitVarLenVideoDataset, RandomVideoDataset
 from video_gcp_torch.data.loader import DataLoader
+from video_gcp_torch.evaluation import visualization as vis
 from video_gcp_torch.evaluation.eval_binding import dense_sample
 from video_gcp_torch.evaluation.eval_logger import TBEvalLogger
 from video_gcp_torch.evaluation.evaluator import PRIOR_INPUTS, Evaluator
 from video_gcp_torch.load import set_float32_precision
 from video_gcp_torch.models.bc import BCModel
+from video_gcp_torch.ops.tree_index import breadthfirst2depthfirst
 from video_gcp_torch.parallel.mesh import axis_rank, axis_size, init_distributed, make_mesh
 from video_gcp_torch.parallel.train_step import (
     broadcast_model,
@@ -92,6 +99,12 @@ class _NullLogger:
 
     def __getattr__(self, name):
         return lambda *a, **kw: None
+
+
+def _host(t) -> np.ndarray:
+    """A tensor as a float32 (or its own integer or bool) numpy array."""
+    t = t.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()
 
 
 class AverageMeter:
@@ -434,7 +447,9 @@ class ModelTrainer:
             for k, v in self.val_step(batch, self.step, self.generator).items():
                 losses_acc.setdefault(k, []).append(float(v))
             if n <= self.args.val_metric_batches:
-                self._quick_image_metrics(batch, img_metrics)
+                self._quick_image_metrics(batch, img_metrics, log_images=n == 1)
+            if n == 1:
+                self._log_posterior_viz(batch)
         if self.mesh is not None:  # the ranks' rows: the mean of their means
             img_metrics = {k: [self._rank_mean(np.mean(v))] for k, v in img_metrics.items()
                            if v}
@@ -456,28 +471,98 @@ class ModelTrainer:
         return float(t[0]) / self.dist.world_size
 
     @torch.no_grad()
-    def _quick_image_metrics(self, batch, acc):
+    def _quick_image_metrics(self, batch, acc, log_images=False):
         """PSNR, SSIM and MSE of one prior sample on one val batch, averaged
         over the padded frames without the first/last crop (JAX
         trainer.py:488-516): a tree's nodes warped onto the GT timeline by
-        DTW, the sequential model's rollout as it is. The sample's image
-        logging (_log_val_images) waits for ROADMAP item 13, and with it the
-        top-down overlay that the JAX trainer draws for state-space models
-        (trainer.py:519-525, 561-575)."""
+        DTW, the sequential model's rollout as it is. With `log_images`,
+        rank 0 also logs the sample's images (_log_val_images), the
+        state-space models' top-down overlay among them, before their
+        metrics are skipped."""
         if isinstance(self.model, BCModel):
             return  # no frames to score (the JAX trainer's _dense_prediction is None)
-        if not self.hp.get("use_convs", True):
-            return  # image metrics over state vectors mean nothing (JAX :507-508)
         batch = AttrDict(batch)
         batch.traj_seq = to_float_images(batch.traj_seq)
         out = self.model(AttrDict({k: batch[k] for k in PRIOR_INPUTS if k in batch}),
                          phase="test", mode="prior", generator=self.generator)
         pred = dense_sample(out, batch, "dtw" if "tree" in out else "basic",
                             self.model.hp["max_seq_len"])
+        if log_images and self.is_main:
+            self._log_val_images(out, batch, pred)
+        if not self.hp.get("use_convs", True):
+            return  # image metrics over state vectors mean nothing (JAX :507-508)
         mask = batch.pad_mask
         denom = mask.sum()
         for name, fn in (("psnr", psnr), ("ssim", ssim), ("mse", mse)):
             acc[name].append(float((fn(pred, batch.traj_seq) * mask).sum() / denom))
+
+    def _log_val_images(self, out, batch, pred):
+        """The prior sample's images (JAX trainer.py:518-552; the
+        reference's HierarchyLogger family); for a state-space model its
+        top-down overlay (base_gcp.py:329-330 prediction_topdown)."""
+        if not self.hp.get("use_convs", True):
+            self._log_topdown_overlay(batch, pred, "prediction_topdown")
+            return
+        gen = _host(pred)
+        self.logger.log_images(np.stack([vis.seq_strip(_host(batch.traj_seq)), vis.seq_strip(gen)]),
+                               "val_gt_vs_pred", self.step, "val")
+        self.logger.log_video(gen[0], "val_pred_gif", self.step, "val")
+        if "tree" in out:
+            self.logger.log_images(vis.plot_balanced_tree(_host(out.tree.images))[None],
+                                   "output_tree", self.step, "val")
+            if "prune_keep" in out:
+                self.logger.log_images(
+                    vis.plot_pruned_seq(_host(breadthfirst2depthfirst(out.tree.images)),
+                                        _host(out.prune_keep))[None],
+                    "pruned_pred", self.step, "val")
+
+    @torch.no_grad()
+    def _log_posterior_viz(self, batch):
+        """Of a train-mode posterior pass on one val batch: the GT-match
+        overview, the attention averaged over heads (logger.py:195-199,
+        tree.py:104) and the regressed states' top-down overlay
+        (base_gcp.py:313-316); JAX trainer.py:554-595. Every rank runs the
+        pass (a sharded model's forward is collective); rank 0 logs. The GT
+        row shows the float frames (the JAX trainer hands the plot the
+        uint8 batch, which saturates to white)."""
+        want_overlay = hasattr(self._dataset_class(), "render_trajectory")
+        use_convs = self.hp.get("use_convs", True)
+        if isinstance(self.model, BCModel) or not (use_convs or want_overlay):
+            return
+        out = self.model(batch, phase="train", mode="posterior", generator=self.generator,
+                         step=self.step)
+        if not self.is_main:
+            return
+        if use_convs and "tree" in out:
+            imgs = _host(out.tree.images)
+            gt = _host(to_float_images(batch.traj_seq))
+            if "gt_match_dists" in out:
+                self.logger.log_images(
+                    vis.plot_gt_matching_overview(imgs, _host(out.gt_match_dists), gt)[None],
+                    "gt_match_overview", self.step, "val")
+            gamma = out.tree.get("gamma")
+            if gamma is not None:
+                gamma = _host(gamma)
+                if gamma.ndim == 4:  # [B, N, heads, T]
+                    gamma = gamma.mean(2)
+                self.logger.log_images(vis.plot_gt_matching_overview(imgs, gamma, gt)[None],
+                                       "attention_masks", self.step, "val")
+        if want_overlay and "regressed_state" in out:
+            self._log_topdown_overlay(batch, out.regressed_state, "regressed_state_topdown")
+
+    def _log_topdown_overlay(self, batch, predictions, name):
+        """The dataset's top-down drawing of the GT and predicted states
+        (logger.py:271-289 log_dataset_specific_trajectory), if its class
+        has `render_trajectory`."""
+        dset_cls = self._dataset_class()
+        if not hasattr(dset_cls, "render_trajectory"):
+            return
+        host = AttrDict({k: _host(v) for k, v in batch.items()})
+        im = dset_cls.render_trajectory(None, host, _host(predictions), host.end_ind)
+        if "image" in im:  # [N, H, W, 3] in [0, 1]; the Logger takes [-1, 1]
+            self.logger.log_images(np.asarray(im["image"]) * 2.0 - 1.0, name, self.step, "val")
+        if "video" in im:
+            self.logger.log_video(np.asarray(im["video"]) * 2.0 - 1.0, name, self.step, "val")
 
     def _dump_debug_data(self, batch, metrics):
         """Non-finite gradients: save the batch and metrics for offline
