@@ -19,9 +19,11 @@ Run from the root of the repository, with no arguments:
    candidates, decoder on 50 x 99 frames), the dist phase's f32 shapes
    (dist_kernel_shapes: the rows each rank of its training runs holds, the
    25-room flagship's 16 x 200 frames and 16 x 255 nodes among them at one
-   card, and the split plan call's chunks), plus the largest shape of the
-   repo, [16352, 64, 64, 16] bf16. Prints per shape the kernel's time (CUDA
-   events, median of 25), its own device time (torch.profiler, 10 calls,
+   card, and the split plan call's chunks), the 25room phase's f32 sites
+   (ROOM25_K1_SHAPES: the flagship's train step on 16 x 200 frames and 16 x
+   255 nodes, the 25-room control path's decoder on 255 n nodes), plus the
+   largest shape of the repo, [16352, 64, 64, 16] bf16. Prints per shape
+   the kernel's time (CUDA events, median of 25), its own device time (torch.profiler, 10 calls,
    one profiler session over every shape, as in the K2 phase),
    the bound, the wrapper's host time per call (best of 3 x 50 calls issued
    back to back) and the max difference, and at each path's top shape
@@ -29,13 +31,15 @@ Run from the root of the repository, with no arguments:
    F.leaky_relu (a yardstick the port never calls); then, per
    path, the sums of the times and bounds over a plan call's, a B=16
    rollout's and a train step's K1 sites, in f32 and in bf16, and over
-   gcp_sequential's train step in f32.
+   gcp_sequential's train step, a 25-room simulator call of 10 candidates
+   and the flagship's train step in f32.
 3. K2 phase: K2 against its twin at the 15 norm shapes of a training step
    at B=16, T=100 (encoder on 1600 frames and on the 16 start and goal
    frames, decoder on 2032 nodes) in f32 and in bf16, at the 5 decoder
    shapes of 9room/gcp_sequential's train step (1,584 frames) in f32, and
    at the two largest of bench.py's train step in bf16, and at the dist
-   phase's training shapes in f32 (dist_kernel_shapes). Inputs are moved
+   phase's training shapes in f32 (dist_kernel_shapes) and the 25room
+   phase's (ROOM25_K2_SHAPES). Inputs are moved
    clear of LeakyReLU's kink (fused_gn.clear_of_kink) so that both sign
    tests agree. Prints the same columns and the sums over a train step's
    20 K2 sites in each dtype (and over gcp_sequential's 20 in f32); the
@@ -127,11 +131,11 @@ Run from the root of the repository, with no arguments:
    (FINETUNE_IMAGES); prints ms per step.
 10. Plan phase: closed-loop visual planning on 9room/gcp_tree with ep74 on
    the card. ep74 as a port checkpoint under the build directory and the
-   start/goal configurations 0-1 of the port's PRM expert
+   start/goal configuration 0 of the port's PRM expert
    (experiments/data_gen/nav_9rooms_start_goal, on the CPU) are made once,
    by the first of the baselines and plan phases, and
-   planning.run's ControlManager runs the control benchmark's tasks 0-1
-   (experiments/control/9room/gcp_tree, T=200 env steps each) from copies
+   planning.run's ControlManager runs the control benchmark's task 0
+   (experiments/control/9room/gcp_tree, T=200 env steps) from copies
    of both configs under the build directory. Checks 15 K1 launches per
    simulator call and 5 per closed-loop action and no K2 or K3, finite
    plans with images in [-1, 1], finite actions, the task and score
@@ -142,9 +146,37 @@ Run from the root of the repository, with no arguments:
    candidate count and its bytes to the host, ms per _plan and its
    simulator share, one _plan's host time, device-busy time and idle share
    (torch.profiler), ms per action, env steps/s, seconds per task, and the
-   success rate and penalized path cost over the 2 tasks. The K1 phase
+   success rate and penalized path cost of the task. The K1 phase
    also holds K1 at the control path's sites (encoder at n = 10, 5, 1,
    decoder at 127 n nodes).
+
+10b. 25room phase (right after the plan phase): the paper's 25-room
+   long-horizon path at the published widths, cut in depth only. The port's
+   PRM expert makes 33 nav_25rooms trajectories (of the config's 1000;
+   experiments/data_gen/nav_25rooms, T=200, 128x128 frames) on the host in
+   8 spawned workers seeded 0-7, each read back through data/h5.py; the
+   25-room flagship (experiments/prediction/25room/gcp_tree: untied, L=8,
+   255 nodes, a 512x3 split_linear TreeLSTM) trains from them through
+   ModelTrainer from its initialisation, one epoch of 4 steps at B=16,
+   T=200 and its val pass: 20 K1 and 20 K2 a step, 55 K1 in the val pass,
+   no K3, finite values, parameters that moved (RAdam's first 5 steps do
+   not normalise, so those with the smallest gradients may not), one step
+   card vs CPU (TOLS_TRAIN). From that checkpoint, task 0 (of 100) of
+   control/25room/gcp_tree (8-level hierarchical CEM, rates [10, 10],
+   simulator calls of 10, 10, 5 and 1 candidates a _plan) and of
+   control/25room/gcp_sequential (flat CEM over the 255 latents, calls of 5
+   and 5) run through planning.run's ControlManager to T=400 env steps,
+   from a start/goal configuration that the PRM expert makes in the 25-room
+   maze (nav_9rooms_start_goal's config at n_rooms 25 and T=200, written
+   under the build directory): 15 K1 a simulator call and 5 a closed-loop
+   action, no K2 or K3, the first simulator call (2 candidates) and the
+   first action card vs CPU. Prints seconds per generated trajectory, the
+   synced ms and t_data of each step, training frames/s, a step's device
+   time, the peak device memory, ms per _plan, each simulator call's ms by
+   candidates, one profiled _plan's host ms, busy ms and idle share, env
+   steps/s, and compute_control_perf at n_rooms 25 with max_seq_len 400
+   (the agent's T). The K1 and K2 phases hold the kernels at this path's
+   sites (ROOM25_K1_SHAPES, ROOM25_K2_SHAPES).
 
 11. h5 phase (run right after the train phase): the port's PRM expert makes
    40 nav_9rooms trajectories on the host (experiments/data_gen/nav_9rooms,
@@ -230,6 +262,10 @@ parent's: dp_rows, its K3 and posterior) and checks that this checkout's F
 and Bk equal the parent's DP values bit for bit and w is within 1e-6 of the
 parent's. --kernels-only stops after those phases and prints their rows as
 JSON.
+
+    python3 chip_smoke.py --room25-only
+
+builds and runs only the 25room phase (no result line).
 
     python3 chip_smoke.py --flip-probe WINDOWS
 
@@ -333,7 +369,7 @@ SEED = 0
 CONTROL_CANDIDATES = (10, 5, 1)
 CONTROL = "experiments/control/9room/gcp_tree/mod_hyper.py"
 DATA_GEN = "experiments/data_gen/nav_9rooms_start_goal/mod_hyper.py"
-CONTROL_TASKS = 2  # 2 of the benchmark's 100 tasks: the script's time
+CONTROL_TASKS = 1  # 1 of the benchmark's 100 tasks: the script's time
 K1_PER_SIM_CALL, K1_PER_ACTION = 15, 5  # 5 encoder sites x 2 + 5 decoder; 5
 # the baselines phase (the paper's planning baselines in the 9-room maze):
 # the flat CEM ablation (control/9room/gcp_sequential: ep74, 2^7 - 1 tree
@@ -351,13 +387,6 @@ BC_NORMS_PER_STEP = K1_PER_BC_ACTION = 10  # the sequence (or I_0) and I_g, no d
 # gradient; its forward runs all 20 K1
 VMPC_PER_STEP = (NORMS_PER_STEP, 15, 0)
 CONV_LSTM_B = 2  # the ConvLSTM forward held card vs CPU
-# the top shape of each path, where the K1 phase also times the plain twin
-# and the library call (the rows PERF.md's kernel table cites): the plan
-# call, the B=16 rollout, bench.py's bf16 decode, the control path,
-# gcp_sequential's training and VMPC's simulator call
-K1_COMPARED = [((n, 32, 32, 16), "float32") for n in (
-    CEM_BATCH * N_NODES, ROLLOUT_BATCH * N_NODES, CONTROL_CANDIDATES[0] * N_NODES,
-    SEQ_DEC_BATCH, VMPC_CANDIDATES * (TRAIN_T - 1))] + [((32 * 511, 64, 64, 16), "bfloat16")]
 TOL_ACTION = 1e-4  # one closed-loop action, card vs CPU (tests/test_torch_planning.py)
 # the dist phase: torchrun of the trainer over NCCL on up to 4 cards
 # (9room/gcp_tree with ep74, 4 steps: 32 random sequences x
@@ -377,6 +406,45 @@ H5_FILES, H5_EPOCHS = 40, 2  # epoch 0 with a cold render cache, epoch 1 warm
 H5_CONFS = (("gcp_tree", CONF), ("gcp_sequential", ROOT / "experiments/prediction/9room/gcp_sequential"))
 H5_LAYOUT = {"actions": ((100, 2), "float64"), "images": ((101, 1, 128, 128, 3), "uint8"),
              "pad_mask": ((101,), "float64"), "states": ((101, 5), "float64")}
+# the 25room phase: the paper's 25-room long-horizon path. nav_25rooms from the
+# PRM expert (T=200, 128x128 frames, one trajectory a file, 33 of the
+# config's 1000 by ROOM25_GEN_WORKERS spawned workers); the global split 0.994
+# / 0.006 keeps 32 files for training (4 batches of 16 at epoch_cycles_train
+# 2) and 1 for val. The 25-room flagship (untied, L=8, a 512x3 TreeLSTM)
+# trains one epoch from them, then one task (T=400 env steps, of the
+# benchmark's 100) of each 25-room control config plans from its checkpoint
+ROOM25_DATA_GEN = "experiments/data_gen/nav_25rooms/mod_hyper.py"
+ROOM25_CONF = "experiments/prediction/25room/gcp_tree/conf.py"
+ROOM25_CONTROL = {"gcp_tree": "experiments/control/25room/gcp_tree/mod_hyper.py",
+                  "gcp_sequential": "experiments/control/25room/gcp_sequential/mod_hyper.py"}
+# the start/goal configurations of the 25-room tasks: nav_9rooms_start_goal's
+# config (the PRM expert, raw PNGs) in the 25-room maze at nav_25rooms' T
+ROOM25_START_GOAL = {"'n_rooms': 9,": "'n_rooms': 25,", "T=100,": "T=200,",
+                     "'/nav_9rooms/start_goal_configs'": "'/nav_25rooms/start_goal_configs'"}
+ROOM25_FILES, ROOM25_GEN_WORKERS, ROOM25_STEPS = 33, 8, 4
+ROOM25_ENV_T, ROOM25_N_ROOMS = 400, 25
+ROOM25_VAL_PASS = FINETUNE_VAL_PASS  # val step 20, logged prior 15, posterior 20
+ROOM25_LAYOUT = {"actions": ((200, 2), "float64"), "images": ((201, 1, 128, 128, 3), "uint8"),
+                 "pad_mask": ((201,), "float64"), "states": ((201, 5), "float64")}
+ROOM25_VS_CPU_CANDIDATES = 2  # the first simulator call's candidates held card vs CPU
+# K1 and K2 at the 25room phase's sites: the flagship's train step (the
+# encoder on 16 x 200 frames and on the 16 start and goal frames, the decoder
+# on 16 x 255 nodes; its val pass has the same) and the 25-room control
+# path's simulator calls (the encoder on n candidates, the decoder on n x 255
+# nodes) and actions (n = 1)
+ROOM25_K2_SHAPES = ([(n,) + s for n in (TRAIN_B * FLAGSHIP_T, TRAIN_B) for s in ENC_SITES]
+                    + [(TRAIN_B * FLAGSHIP_NODES,) + s for s in DEC_SITES])
+ROOM25_K1_SHAPES = ROOM25_K2_SHAPES + [
+    (n * FLAGSHIP_NODES,) + s for n in CONTROL_CANDIDATES for s in DEC_SITES]
+# the top shape of each path, where the K1 phase also times the plain twin
+# and the library call (the rows PERF.md's kernel table cites): the plan
+# call, the B=16 rollout, bench.py's bf16 decode, the control path,
+# gcp_sequential's training, VMPC's simulator call, and the 25-room control
+# path's and training's decoders
+K1_COMPARED = [((n, 32, 32, 16), "float32") for n in (
+    CEM_BATCH * N_NODES, ROLLOUT_BATCH * N_NODES, CONTROL_CANDIDATES[0] * N_NODES,
+    SEQ_DEC_BATCH, VMPC_CANDIDATES * (TRAIN_T - 1), CONTROL_CANDIDATES[0] * FLAGSHIP_NODES,
+    TRAIN_B * FLAGSHIP_NODES)] + [((32 * 511, 64, 64, 16), "bfloat16")]
 
 
 def fail(msg):
@@ -531,7 +599,11 @@ def path_sums(tag, rows, keys, paths):
                  rollout=sites(ROLLOUT_BATCH * N_NODES, [(ROLLOUT_BATCH, 2)]),
                  train_step=sites(TRAIN_B * N_NODES, [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]),
                  train_step_sequential=sites(SEQ_DEC_BATCH,
-                                             [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]))
+                                             [(TRAIN_B * TRAIN_T, 1), (TRAIN_B, 2)]),
+                 room25_sim_call=sites(CONTROL_CANDIDATES[0] * FLAGSHIP_NODES,
+                                       [(CONTROL_CANDIDATES[0], 2)]),
+                 train_step_room25=sites(TRAIN_B * FLAGSHIP_NODES,
+                                         [(TRAIN_B * FLAGSHIP_T, 1), (TRAIN_B, 2)]))
     out = {}
     for path in paths:
         for dtype, name in (("float32", path), ("bfloat16", f"{path}_bf16")):
@@ -590,8 +662,9 @@ def kernel_phase(torch, F, fused_gn, parent=None):
     # their T - 1 frames each
     cases += [((VMPC_CANDIDATES,) + s, "float32") for s in ENC_SITES]
     cases += [((VMPC_CANDIDATES * (TRAIN_T - 1),) + s, "float32") for s in DEC_SITES]
-    cases += [(s, "float32") for s in dist_kernel_shapes(torch)[0]
-              if (s, "float32") not in cases]  # the dist phase's ranks and chunks
+    cases += [(s, "float32") for s in dict.fromkeys(dist_kernel_shapes(torch)[0]
+                                                   + ROOM25_K1_SHAPES)
+              if (s, "float32") not in cases]  # the dist phase's ranks and chunks, 25room
     groups = 8
 
     def inputs(gen, shape, dtype):
@@ -669,7 +742,8 @@ def kernel_phase(torch, F, fused_gn, parent=None):
               + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
                  f"{row['parent_host_us']:.1f}" if parent else ""))
     sums = path_sums("K1", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
-                     ("plan_call", "rollout", "train_step", "train_step_sequential"))
+                     ("plan_call", "rollout", "train_step", "train_step_sequential",
+                      "room25_sim_call", "train_step_room25"))
     print(f"K1: {len(rows)} shapes checked against the twin and timed, the twin and "
           f"F.group_norm at the {len(K1_COMPARED)} top shapes only; seconds by part "
           + json.dumps({k: round(v, 2) for k, v in part_s.items()}))
@@ -689,8 +763,8 @@ def k2_phase(torch, F, fused_gn, parent=None):
     """K2 against its twin, and its times, at the training shapes (the
     dist phase's ranks' among them)."""
     groups = 8
-    shapes = K2_SHAPES + [(s, "float32") for s in dist_kernel_shapes(torch)[1]
-                          if (s, "float32") not in K2_SHAPES]
+    shapes = K2_SHAPES + [(s, "float32") for s in dict.fromkeys(
+        dist_kernel_shapes(torch)[1] + ROOM25_K2_SHAPES) if (s, "float32") not in K2_SHAPES]
 
     def inputs(gen, shape, dtype):
         dt, c = getattr(torch, dtype), shape[-1]
@@ -762,7 +836,7 @@ def k2_phase(torch, F, fused_gn, parent=None):
               + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
                  f"{row['parent_host_us']:.1f}" if parent else ""))
     sums = path_sums("K2", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
-                     ("train_step", "train_step_sequential"))
+                     ("train_step", "train_step_sequential", "train_step_room25"))
     return rows, sums
 
 
@@ -1892,8 +1966,8 @@ def first_sim_vs_cpu(torch, AttrDict, rec, tag, n=CONTROL_CANDIDATES[0]):
 def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
     """Closed-loop visual planning on 9room/gcp_tree with ep74 on the card:
     start/goal configurations from the port's data generation, then the
-    control benchmark's tasks 0-1 through planning.run's ControlManager."""
-    import types
+    control benchmark's tasks 0..CONTROL_TASKS-1 through planning.run's
+    ControlManager."""
     from video_gcp_torch.core.attrdict import load_pickle
     from video_gcp_torch.evaluation.compute_control_perf import compute_control_perf
     from video_gcp_torch.planning import planner_policy
@@ -1975,18 +2049,28 @@ def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
 
     # the first simulator call and the first action, card against the CPU
     cpu_model, diffs = first_sim_vs_cpu(torch, AttrDict, rec, "control path")
-    img, target, got = rec.first_action
-    cpu_policy = types.SimpleNamespace(planner=cpu_model, device=torch.device("cpu"))
-    cpu_policy._encode = lambda im: planner_policy.ImageCEMPolicy._encode(cpu_policy, im)
-    want_action = planner_policy.ImageCEMPolicy._infer_action(cpu_policy, img, target)
-    diffs["action"] = float(np.abs(got - want_action).max())
-    if not diffs["action"] < TOL_ACTION:
-        fail(f"control path: a closed-loop action differs from the CPU by "
-             f"{diffs['action']} (tolerance {TOL_ACTION})")
+    diffs["action"] = first_action_vs_cpu(torch, rec, cpu_model, "control path")
     print(f"plan: card vs CPU, the first simulator call ({len(rec.first_sim[0]['z'])} candidates, "
           "same z and end_ind) and the first action, max abs diff: "
           + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
     return k1
+
+
+def first_action_vs_cpu(torch, rec, cpu_model, tag):
+    """The first closed-loop action of a control run, card against the
+    planner's copy on the CPU (`cpu_model`): the largest difference."""
+    import types
+    from video_gcp_torch.planning import planner_policy
+
+    img, target, got = rec.first_action
+    cpu_policy = types.SimpleNamespace(planner=cpu_model, device=torch.device("cpu"))
+    cpu_policy._encode = lambda im: planner_policy.ImageCEMPolicy._encode(cpu_policy, im)
+    want = planner_policy.ImageCEMPolicy._infer_action(cpu_policy, img, target)
+    diff = float(np.abs(got - want).max())
+    if not diff < TOL_ACTION:
+        fail(f"{tag}: a closed-loop action differs from the CPU by {diff} "
+             f"(tolerance {TOL_ACTION})")
+    return diff
 
 def step_busy_ms(torch, trainer, step_fn):
     """Device time of one train step of `trainer` on a resident batch, after
@@ -2224,13 +2308,15 @@ def _write(rel, text):
     return path
 
 
-def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag):
-    """`conf` trained from the h5 phase's nav_9rooms files through
-    ModelTrainer from the port's initialisation: one epoch (4 steps at B=16,
-    T=100) and a val pass. Checks `per_step` (K1, K2, K3) launches a step,
-    finite losses, gradients and val losses. Returns the trainer, each
-    step's metrics and the launches."""
-    os.environ["GCP_DATA_DIR"] = str(EXP_DIR / "h5_data")
+def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag,
+                   data_dir=None):
+    """`conf` trained from the h5 files under `data_dir` (the h5 phase's
+    nav_9rooms unless given) through ModelTrainer from the port's
+    initialisation: one epoch and a val pass. Checks `per_step` (K1, K2,
+    K3) launches a step, finite losses, gradients and val losses, and that
+    some parameter moved. Returns the trainer, each step's metrics and the
+    launches."""
+    os.environ["GCP_DATA_DIR"] = str(data_dir or EXP_DIR / "h5_data")
     os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
     args = trainer_mod.parse_args([
         "--path", str(conf), "--resume", "none", "--num_epochs", "1", "--deterministic", "1",
@@ -2243,15 +2329,20 @@ def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag):
     if len(steps) != len(trainer.train_loader) or len(steps) < 2 or len(vals) != 1:
         fail(f"{tag}: {len(steps)} steps and {len(vals)} val passes")
     check_steps(torch, tag, steps, vals, per_step)
-    # (BC's loss is divided by T*H*W*C: RAdam's first steps, which do not
-    # normalise, move its weights by less than float32 resolves)
+    # RAdam's first 5 steps do not normalise (its rectification starts at
+    # step 6): a parameter whose gradient is small moves by less than
+    # float32 resolves (all of BC's, whose loss is divided by T*H*W*C)
     with_grad = sum(p.grad is not None and bool(p.grad.abs().sum() > 0)
                     for p in trainer.model.parameters())
+    n_unmoved = len(unmoved(torch, trainer.model, before))
+    if n_unmoved == with_grad:
+        fail(f"{tag}: no parameter with a gradient moved")
     print(f"{tag}: {conf.name} from the h5 files, {len(steps)} steps at "
-          f"B={trainer.conf['batch_size']} T={TRAIN_T} and a val pass in {wall:.2f} s; "
-          f"K1/K2/K3 launches per step {per_step}, total {launches}; synced ms per step "
+          f"B={trainer.conf['batch_size']} T={trainer.train_loader.dataset.max_seq_len} and a "
+          f"val pass in {wall:.2f} s (checkpoint included); K1/K2/K3 launches per step "
+          f"{per_step}, total {launches}; synced ms per step "
           f"{[round(t * 1e3, 1) for t in trainer.step_seconds]}; parameters with a gradient "
-          f"that did not move: {len(unmoved(torch, trainer.model, before))} of {with_grad}")
+          f"that did not move: {n_unmoved} of {with_grad}")
     busy = step_busy_ms(torch, trainer, trainer_mod.train_step)
     print(f"{tag}: device busy in a step {fmt(busy)} ms (torch.profiler, a resident batch)")
     print(f"{tag}: last step " + json.dumps(
@@ -2320,11 +2411,12 @@ def flip_probe(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader
         worst_leaky_kink=max(r["leaky_kink"] for r in rows), tols=TOLS_TRAIN)))
 
 
-def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None):
-    """One task of the 9-room control benchmark from `conf` through
-    planning.run's ControlManager on the card, with the planner's calls and
-    the policy's actions recorded. Returns the recorder, each env step's
-    seconds, the BC actions, the launches, the run's seconds and metrics."""
+def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None, perf_args=None):
+    """One task of a control benchmark (the 9-room one unless `conf` says
+    otherwise) from `conf` through planning.run's ControlManager on the
+    card, with the planner's calls and the policy's actions recorded, scored
+    by compute_control_perf(**perf_args). Returns the recorder, each env
+    step's seconds, the BC actions, the launches and the metrics."""
     from video_gcp_torch.core.attrdict import load_pickle
     from video_gcp_torch.evaluation.compute_control_perf import compute_control_perf
     from video_gcp_torch.planning import planner_policy
@@ -2370,7 +2462,8 @@ def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None):
     run_s = time.perf_counter() - t0
     launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
     log = conf.parent / "log"
-    perf = compute_control_perf(load_pickle(log / f"scores_0to{BASELINE_TASKS - 1}.pkl"))
+    perf = compute_control_perf(load_pickle(log / f"scores_0to{BASELINE_TASKS - 1}.pkl"),
+                                **(perf_args or {}))
     if not all(np.isfinite(v) for v in perf.values()):
         fail(f"{tag}: control metrics not finite: {perf}")
     want = (K1_PER_SIM_CALL * len(rec.sim) + K1_PER_ACTION * len(rec.actions)
@@ -2395,7 +2488,7 @@ def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None):
             {k: round(v, 3) for k, v in rec.profile.items()}))
     print(f"{tag}: a smoke run, not a quality result: success rate "
           f"{perf['success_rate']:.3f}, penalized path cost {perf['penalized_cost']:.3f}")
-    return rec, env_steps, bc_actions, launches
+    return rec, env_steps, bc_actions, launches, perf
 
 
 def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader,
@@ -2415,7 +2508,7 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
     # 1. the flat CEM ablation: the published config with ep74
     control_setup(torch, "baselines")
     lap("setup")
-    rec, _, _, launches["flat_cem"] = baseline_control(
+    rec, _, _, launches["flat_cem"], _ = baseline_control(
         torch, fused_gn, soft_dtw, "flat_cem", _config_copy(FLAT_CONTROL))
     sched = {tuple(p["schedule"]) for p in rec.plans}
     if sched != {(5, 5)}:
@@ -2444,7 +2537,7 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
                  trainer.train_loader.dataset, "vmpc")
     del trainer
     lap("vmpc_train")
-    rec, _, _, launches["vmpc_plan"] = baseline_control(
+    rec, _, _, launches["vmpc_plan"], _ = baseline_control(
         torch, fused_gn, soft_dtw, "vmpc_plan", _write(
             "experiments/control/9room/vmpc/mod_hyper.py",
             BASELINE_CONTROL.replace("POLICY", VMPC_POLICY).replace("MODEL", "vmpc")
@@ -2475,7 +2568,7 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
                  trainer.train_loader.dataset, "bc")
     del trainer
     lap("bc_train")
-    rec, env_steps, bc_actions, launches["bc_act"] = baseline_control(
+    rec, env_steps, bc_actions, launches["bc_act"], _ = baseline_control(
         torch, fused_gn, soft_dtw, "bc_act", _write(
             "experiments/control/9room/bc/mod_hyper.py",
             BASELINE_CONTROL.replace("POLICY", BC_POLICY).replace("MODEL", "bc")))
@@ -2546,6 +2639,176 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
     print("baselines: seconds of each part " + json.dumps(laps) + "; K1/K2/K3 launches "
           + json.dumps(launches))
     return launches
+
+# ---------------------------------------------------------------------------
+# the 25room phase: the paper's 25-room long-horizon path
+# ---------------------------------------------------------------------------
+
+def room25_data(tag):
+    """ROOM25_FILES nav_25rooms trajectories by the port's PRM expert in
+    ROOM25_GEN_WORKERS spawned workers (worker i seeded SEED + i), each file
+    read back through data/h5.py. Returns their directory."""
+    from video_gcp_torch.data import h5
+    from video_gcp_torch.planning.run import ControlManager
+
+    data_dir = EXP_DIR / "h5_25"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    os.environ["GCP_DATA_DIR"] = str(data_dir)
+    t0 = time.perf_counter()
+    ControlManager([str(_config_copy(ROOM25_DATA_GEN)), "--device", "cpu", "--nworkers",
+                    str(ROOM25_GEN_WORKERS), "--start_idx", "0", "--end_idx",
+                    str(ROOM25_FILES - 1), "--seed", str(SEED)]).run()
+    gen_s = time.perf_counter() - t0
+    files = sorted((data_dir / "nav_25rooms").glob("*.h5"))
+    if len(files) != ROOM25_FILES:
+        fail(f"{tag}: the data generation wrote {len(files)} files, expected {ROOM25_FILES}")
+    t0 = time.perf_counter()
+    for path in files:
+        with h5.File(path, "r") as f:
+            got = {k: (f[f"traj0/{k}"].shape, str(f[f"traj0/{k}"].dtype)) for k in f["traj0"]}
+            if list(f) != ["traj0", "traj_per_file"] or got != ROOM25_LAYOUT:
+                fail(f"{tag}: {path.name} holds {list(f)}, traj0 {got}")
+            if not np.isfinite(f["traj0/states"][()]).all():
+                fail(f"{tag}: {path.name} has non-finite states")
+    print(f"{tag}: {ROOM25_FILES} nav_25rooms trajectories (T={FLAGSHIP_T}, 128x128) by the PRM "
+          f"expert (host, {ROOM25_GEN_WORKERS} workers) in {gen_s:.2f} s, "
+          f"{gen_s / ROOM25_FILES:.3f} s per trajectory; read back through data/h5.py in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return data_dir
+
+
+def room25_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+                 load_model, data_dir, tag):
+    """25room/gcp_tree trained from the nav_25rooms files in `data_dir`
+    (baseline_train: one epoch of ROOM25_STEPS steps at B=16, T=200 and its
+    val pass from the port's initialisation), then one step card vs CPU.
+    Returns the launches."""
+    conf = _config_copy(ROOM25_CONF).parent
+    shutil.rmtree(EXP_DIR / "prediction/25room/gcp_tree", ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    per_step = (NORMS_PER_STEP, NORMS_PER_STEP, 0)
+    trainer, _, launches = baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf,
+                                          per_step, tag, data_dir=data_dir)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    dataset = trainer.train_loader.dataset
+    if type(dataset).__name__ != "Nav25Rooms" or len(trainer.train_loader) != ROOM25_STEPS:
+        fail(f"{tag}: dataset {type(dataset).__name__}, {len(trainer.train_loader)} steps")
+    val_pass = tuple(n - ROOM25_STEPS * k for n, k in zip(launches, per_step))
+    if val_pass != ROOM25_VAL_PASS:
+        fail(f"{tag}: K1/K2/K3 launches in the val pass {val_pass}, expected {ROOM25_VAL_PASS}")
+    ckpt = EXP_DIR / "prediction/25room/gcp_tree/weights/weights_ep0/state.pt"
+    if not ckpt.is_file():
+        fail(f"{tag}: the trainer wrote no {ckpt}")
+    trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    warm = statistics.median(trainer.step_seconds[1:])
+    print(f"{tag}: {sum(v.numel() for v in trained.values())} parameters; K1/K2/K3 launches "
+          f"in the val pass {val_pass}; t_data ms "
+          f"{[round(t * 1e3, 1) for t in trainer.data_seconds]}; warm ms per step (median "
+          f"of steps 1-{ROOM25_STEPS - 1}) {warm * 1e3:.2f}; training frames/s "
+          f"{TRAIN_B * FLAGSHIP_T / warm:.1f}; peak device memory {peak_gib:.3f} GiB")
+    del trainer
+    torch.cuda.empty_cache()
+
+    def make_model(device):
+        model = load_model(conf, device=device)
+        model.load_state_dict(trained)
+        return model
+
+    train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag)
+    return launches
+
+
+def room25_control(torch, fused_gn, soft_dtw, AttrDict, name):
+    """One task of control/25room/`name` on the card from the trained
+    checkpoint (baseline_control: T=400 env steps, the second _plan
+    profiled), scored at n_rooms 25 with max_seq_len the agent's T. Checks
+    the env steps and the candidates of every simulator call; prints ms per
+    _plan and per simulator call at each candidate count, env steps/s and
+    the metrics. Returns the recorder and the launches."""
+    tag = f"room25_{name}"
+    rec, env_steps, _, launches, perf = baseline_control(
+        torch, fused_gn, soft_dtw, tag, _config_copy(ROOM25_CONTROL[name]), profiled=1,
+        perf_args=dict(n_rooms=ROOM25_N_ROOMS, max_seq_len=ROOM25_ENV_T))
+    if len(env_steps) != ROOM25_ENV_T or len(rec.actions) != ROOM25_ENV_T:
+        fail(f"{tag}: {len(env_steps)} env steps and {len(rec.actions)} closed-loop actions, "
+             f"expected {ROOM25_ENV_T}")
+    want = {(10, 10, 5, 1)} if name == "gcp_tree" else {(5, 5)}
+    if {tuple(p["schedule"]) for p in rec.plans} != want or rec.profile is None:
+        fail(f"{tag}: simulator candidates per _plan {[p['schedule'] for p in rec.plans]}, "
+             f"expected {want} in each, the second profiled")
+    by_count = {}
+    for n, s, _ in rec.sim:
+        by_count.setdefault(n, []).append(s * 1e3)
+    warm = [p["ms"] for p in rec.plans[2:]] or [p["ms"] for p in rec.plans if p["ms"]]
+    print(f"{tag}: {len(rec.plans)} _plan calls (one at the start, one each time a plan "
+          f"ran out), warm median {statistics.median(warm):.2f} ms; simulator ms per call by "
+          "candidates " + json.dumps({n: [round(t, 2) for t in ts]
+                                      for n, ts in sorted(by_count.items())})
+          + f"; closed-loop action {statistics.median(rec.actions[1:]) * 1e3:.3f} ms (median); "
+          f"{len(env_steps) / sum(rec.tasks):.1f} env steps/s over the task")
+    if name == "gcp_tree":  # the split times the hierarchical sampler's parts
+        split = {k: statistics.median(p[k] for p in rec.plans if p["ms"] is not None)
+                 for k in ("sim_ms", "capping_ms", "cost_ms", "optimizer_ms", "sample_ms")}
+        print(f"{tag}: host time of a _plan, medians over the unprofiled calls (ms): "
+              + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    print(f"{tag}: control metrics at n_rooms={ROOM25_N_ROOMS}, max_seq_len={ROOM25_ENV_T} "
+          "(one task from 4 training steps: a smoke run, not a quality result) "
+          + json.dumps({k: round(v, 4) for k, v in perf.items()}))
+    return rec, launches
+
+
+def room25_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+                 load_model):
+    """The paper's 25-room long-horizon path on the card (see the module's
+    docstring, 10b). Returns each part's K1/K2/K3 launches."""
+    from video_gcp_torch.planning.run import ControlManager
+
+    launches, laps, clock = {}, {}, [time.perf_counter()]
+
+    def lap(what):  # seconds of each part
+        now = time.perf_counter()
+        laps[what] = round(now - clock[0], 2)
+        clock[0] = now
+
+    control_setup(torch, "room25")  # the base configs' copy, GCP_EXP_DIR
+    data_dir = room25_data("room25_data")
+    lap("data")
+    launches["room25_train"] = room25_train(
+        torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+        load_model, data_dir, "room25_train")
+    lap("train")
+    os.environ["GCP_DATA_DIR"] = str(EXP_DIR / "data")
+    text = (ROOT / DATA_GEN).read_text()
+    for old, new in ROOM25_START_GOAL.items():
+        if text.count(old) != 1:
+            fail(f"room25: {old!r} found {text.count(old)} times in {DATA_GEN}")
+        text = text.replace(old, new)
+    start_goal = _write("experiments/data_gen/nav_25rooms_start_goal/mod_hyper.py", text)
+    t0 = time.perf_counter()
+    ControlManager([str(start_goal), "--device", "cpu", "--start_idx", "0", "--end_idx", "0",
+                    "--seed", str(SEED)]).run()
+    print(f"room25: start/goal configuration 0 of the 25-room maze by the PRM expert (CPU) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    lap("start_goal")
+    rec, launches["room25_gcp_tree"] = room25_control(torch, fused_gn, soft_dtw, AttrDict,
+                                                      "gcp_tree")
+    cpu_model, diffs = first_sim_vs_cpu(torch, AttrDict, rec, "room25_gcp_tree",
+                                        n=ROOM25_VS_CPU_CANDIDATES)
+    diffs["action"] = first_action_vs_cpu(torch, rec, cpu_model, "room25_gcp_tree")
+    print(f"room25_gcp_tree: card vs CPU, the first simulator call (its first "
+          f"{ROOM25_VS_CPU_CANDIDATES} candidates, same z and end_ind) and the first action, "
+          "max abs diff: " + json.dumps({k: float(f"{v:.3e}") for k, v in diffs.items()}))
+    del cpu_model
+    lap("gcp_tree")
+    _, launches["room25_gcp_sequential"] = room25_control(torch, fused_gn, soft_dtw, AttrDict,
+                                                          "gcp_sequential")
+    lap("gcp_sequential")
+    if any(v[2] for v in launches.values()):
+        fail(f"room25: K3 launched {launches}")
+    print("room25: seconds of each part " + json.dumps(laps) + "; K1/K2/K3 launches "
+          + json.dumps(launches))
+    return launches
+
 
 # ---------------------------------------------------------------------------
 # the dist phase: multi-GPU training and candidate-sharded planning
@@ -2945,6 +3208,8 @@ def main():
                     help="build, then run only the dist phase (no result line)")
     ap.add_argument("--flip-probe", type=int, metavar="WINDOWS",
                     help="build, then run only flip_probe over WINDOWS windows (no result line)")
+    ap.add_argument("--room25-only", action="store_true",
+                    help="build, then run only the 25room phase (no result line)")
     ap.add_argument("--dist-rank", choices=("trainer", "steps"), help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3012,6 +3277,12 @@ def main():
         timed_phase("dist", dist_phase, torch, fused_gn, soft_dtw,
                     load_model(CONF, weights=WEIGHTS), load_model, AttrDict, distributions,
                     DataLoader, dataset)
+        print(f"seconds per phase: {json.dumps(phase_s)}")
+        print(gpu_name_and_power_limit())
+        return
+    if args.room25_only:
+        timed_phase("room25", room25_phase, torch, fused_gn, soft_dtw, trainer_mod,
+                    distributions, DataLoader, AttrDict, load_model)
         print(f"seconds per phase: {json.dumps(phase_s)}")
         print(gpu_name_and_power_limit())
         return
@@ -3085,6 +3356,8 @@ def main():
     finetune_launches = timed_phase("finetune", finetune_phase, torch, fused_gn, soft_dtw,
                                     trainer_mod)
     plan_k1 = timed_phase("plan", plan_phase, torch, fused_gn, soft_dtw, AttrDict)
+    room25_launches = timed_phase("room25", room25_phase, torch, fused_gn, soft_dtw, trainer_mod,
+                                  distributions, DataLoader, AttrDict, load_model)
     dist_launches = timed_phase("dist", dist_phase, torch, fused_gn, soft_dtw, model,
                                 load_model, AttrDict, distributions, DataLoader,
                                 trainer.train_loader.dataset)
@@ -3108,6 +3381,7 @@ def main():
                   **{k: v[0] for k, v in finetune_launches.items()},
                   **{f"h5_train_{n}": v[0] for n, v in h5_launches.items()},
                   **{k: v[0] for k, v in base_launches.items()},
+                  **{k: v[0] for k, v in room25_launches.items()},
                   **{k: v[0] for k, v in dist_launches.items()})),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
@@ -3116,6 +3390,7 @@ def main():
                   **{k: v[1] for k, v in finetune_launches.items()},
                   **{f"h5_train_{n}": v[1] for n, v in h5_launches.items()},
                   **{k: v[1] for k, v in base_launches.items()},
+                  **{k: v[1] for k, v in room25_launches.items()},
                   **{k: v[1] for k, v in dist_launches.items()})),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
@@ -3124,6 +3399,7 @@ def main():
                   **{k: v[2] for k, v in finetune_launches.items()},
                   **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()},
                   **{k: v[2] for k, v in base_launches.items()},
+                  **{k: v[2] for k, v in room25_launches.items()},
                   **{k: v[2] for k, v in dist_launches.items()}),
              source=soft_dtw.SOURCE),
     ]

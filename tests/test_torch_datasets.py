@@ -4,13 +4,17 @@ them) with both datasets' `_rng` seeded alike: the windows, end_ind,
 pad_mask, states and actions are equal, the stored frames resized alike
 (the port's INTER_AREA against cv2's), the maze's re-rendered frames within
 1 uint8 level; the render cache and its LRU cap; the global and folder
-splits; and `raster.resize_linear` against cv2.resize."""
+splits; and `raster.resize_linear` against cv2.resize. The nav_25rooms
+case reads its spec and dataset class from both packages' nav_25rooms
+configs unchanged: T=200 windows of the 5x5 maze, re-rendered."""
 import cv2
 import h5py
 import numpy as np
 import pytest
 
+import video_gcp_torch.data.configs.nav_25rooms as t_nav25
 import video_gcp_torch.data.datasets as t_ds
+import video_gcp_tpu.data.configs.nav_25rooms as j_nav25
 import video_gcp_tpu.data.datasets as j_ds
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.planning.infra import raster
@@ -18,9 +22,11 @@ from video_gcp_tpu.core.attrdict import AttrDict as JAttrDict
 
 T_FILE, T = 14, 10  # frames stored per trajectory, the window's length
 RENDER_TOL = 1  # uint8 levels, re-rendered maze frames (measured max: 0)
+T_FILE_25 = 210  # nav_25rooms: frames stored per trajectory, for T=200 windows
 
 
-def _write(root, n_files=6, traj_per_file=2, img=24, state_dim=5, folders=False):
+def _write(root, n_files=6, traj_per_file=2, img=24, state_dim=5, folders=False,
+           t_file=T_FILE):
     rng = np.random.RandomState(0)
     for i in range(n_files):
         d = root / "hdf5" / ("train", "val")[i % 2] if folders else root
@@ -28,13 +34,13 @@ def _write(root, n_files=6, traj_per_file=2, img=24, state_dim=5, folders=False)
         with h5py.File(d / f"traj_{i}.h5", "w") as f:
             f.create_dataset("traj_per_file", data=traj_per_file)
             for j in range(traj_per_file):
-                n_real = T_FILE - (i + j) % 6  # some trajectories padded
-                pad = (np.arange(T_FILE) < n_real).astype(np.float64)
+                n_real = t_file - (i + j) % 6  # some trajectories padded
+                pad = (np.arange(t_file) < n_real).astype(np.float64)
                 f.create_dataset(f"traj{j}/images",
-                                 data=rng.randint(0, 256, (T_FILE, 1, img, img, 3), np.uint8))
+                                 data=rng.randint(0, 256, (t_file, 1, img, img, 3), np.uint8))
                 f.create_dataset(f"traj{j}/states",
-                                 data=rng.uniform(-0.4, 0.4, (T_FILE, state_dim)) * pad[:, None])
-                f.create_dataset(f"traj{j}/actions", data=rng.randn(T_FILE - 1, 2) * 0.1)
+                                 data=rng.uniform(-0.4, 0.4, (t_file, state_dim)) * pad[:, None])
+                f.create_dataset(f"traj{j}/actions", data=rng.randn(t_file - 1, 2) * 0.1)
                 f.create_dataset(f"traj{j}/pad_mask", data=pad)
 
 
@@ -44,8 +50,12 @@ def _conf(attrdict, **kw):
 
 
 def _pair(name, root, phase, mpar):
-    jset = getattr(j_ds, name)(str(root), dict(mpar), _conf(JAttrDict), phase)
-    tset = getattr(t_ds, name)(str(root), dict(mpar), _conf(AttrDict), phase)
+    if name == "Nav25Rooms":  # the configs' own class and spec
+        jset = j_nav25.Nav25Rooms(str(root), dict(mpar), j_nav25.config, phase)
+        tset = t_nav25.Nav25Rooms(str(root), dict(mpar), t_nav25.config, phase)
+    else:
+        jset = getattr(j_ds, name)(str(root), dict(mpar), _conf(JAttrDict), phase)
+        tset = getattr(t_ds, name)(str(root), dict(mpar), _conf(AttrDict), phase)
     jset._rng, tset._rng = np.random.RandomState(7), np.random.RandomState(7)
     return jset, tset
 
@@ -67,18 +77,24 @@ def _compare(jex, tex, frame_tol):
 @pytest.mark.parametrize("name, frame_tol", [
     ("GlobalSplitVarLenVideoDataset", 0),  # stored frames, INTER_AREA 24 -> 16
     ("MazeTopRenderedGlobalSplitVarLenVideoDataset", RENDER_TOL),
+    ("Nav25Rooms", RENDER_TOL),  # re-rendered too, in the 5x5 maze
 ])
 @pytest.mark.parametrize("phase, randomize", [("train", False), ("train", True),
                                               ("val", False)])
 def test_examples_match_jax(tmp_path, name, frame_tol, phase, randomize):
-    _write(tmp_path)
-    mpar = dict(img_sz=16, randomize_length=randomize, randomize_start=randomize)
+    nav25 = name == "Nav25Rooms"
+    _write(tmp_path, t_file=T_FILE_25 if nav25 else T_FILE)
+    # nav_25rooms: its 32x32 frames and T=200 windows; its split (0.994 /
+    # 0.006) puts 5 of the 6 files in train, 1 in val
+    mpar = dict(img_sz=32 if nav25 else 16, randomize_length=randomize,
+                randomize_start=randomize)
     jset, tset = _pair(name, tmp_path, phase, mpar)
-    assert jset.filenames == tset.filenames and len(jset) == len(tset) == 6
+    n = (10 if phase == "train" else 2) if nav25 else 6
+    assert jset.filenames == tset.filenames and len(jset) == len(tset) == n
     for epoch in range(2):  # the second reads the RAM and render caches
         for i in range(len(jset)):
             _compare(jset[i], tset[i], frame_tol)
-    assert tset[0].traj_seq.shape == (T, 16, 16, 3)
+    assert tset[0].traj_seq.shape == ((200, 32, 32, 3) if nav25 else (T, 16, 16, 3))
 
 
 def test_render_cache_hits_and_skips_stored_images(tmp_path):

@@ -65,6 +65,16 @@ from video_gcp_torch.planning.run import ControlManager, load_control_config
 
 control = load_control_config("experiments/control/9room/gcp_tree/mod_hyper.py")
 assert control["policy"]["type"] is planner_policy.ImageCEMPolicy
+for name in ("gcp_tree", "gcp_sequential"):  # the 25-room control benchmark
+    conf = load_control_config(f"experiments/control/25room/{{name}}/mod_hyper.py")
+    assert conf["policy"]["type"] is planner_policy.ImageCEMPolicy
+    assert conf["agent"]["env"][1]["n_rooms"] == 25 and conf["agent"]["T"] == 400
+    assert conf["policy"]["cem_params"]["sampler"].__module__.startswith("video_gcp_torch.")
+for rooms, t in ((25, 200), (16, 100)):  # the PRM expert's h5 data in the larger mazes
+    conf = load_control_config(f"experiments/data_gen/nav_{{rooms}}rooms/mod_hyper.py")
+    assert conf["agent"]["env"][1]["n_rooms"] == rooms and conf["agent"]["T"] == t
+    assert conf["policy"]["type"].__module__.startswith("video_gcp_torch.")
+    assert conf["agent"]["type"].__module__.startswith("video_gcp_torch.")
 data_gen = load_control_config("experiments/data_gen/nav_9rooms_start_goal/mod_hyper.py")
 agent = data_gen["agent"]["type"](dict(data_gen["agent"]))
 policy = data_gen["policy"]["type"](dict(agent._hp), dict(data_gen["policy"]),
@@ -79,8 +89,10 @@ print("LOADED", loaded)
 
 
 def test_planning_imports_no_jax_and_no_opencv():
-    """The planning CLI's modules, both experiment configs it runs, and a PRM
-    expert episode in the env load no jax, flax, video_gcp_tpu or cv2."""
+    """The planning CLI's modules, the experiment configs it runs (the 9-room
+    control and start/goal configs, both 25-room control configs, the
+    nav_25rooms and nav_16rooms data generation), and a PRM expert episode
+    in the env load no jax, flax, video_gcp_tpu or cv2."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     env.pop("GCP_DATA_DIR", None)
     proc = subprocess.run([sys.executable, "-c", _PLANNING_SCRIPT], cwd=REPO, env=env,

@@ -12,8 +12,8 @@ package, on the CPU.
   the port's files read by cv2 and cv2's files read by the port give the
   same pixels, and every PNG filter type decodes.
 - The layout image, the env's reset and step observations, and a PRM expert
-  trajectory through `GeneralAgent.sample`: equal to the JAX package's
-  under the same `np.random.seed`.
+  trajectory through `GeneralAgent.sample`, in the 9-, 16- and 25-room
+  mazes: equal to the JAX package's under the same `np.random.seed`.
 - `RawSaver` -> `BenchmarkAgent._load_raw_data`, across the two packages in
   both directions.
 - Pickles both ways: the JAX package's task pickle read by the port in a
@@ -188,11 +188,17 @@ def test_png_both_ways(tmp_path):
     assert np.array_equal(raster.read_png(tmp_path / "filters.png"), img)
 
 
-def test_layout_image_and_env_equal_jax():
-    assert np.array_equal(p_layout.draw_layout_overview(3, 256),
-                          j_layout.draw_layout_overview(3, 256))
-    penv = p_env.TopdownMultiroom2dEnv(dict(ENV_PARAMS))
-    jenv = j_env.TopdownMultiroom2dEnv(dict(ENV_PARAMS))
+N_ROOMS = [9, 16, 25]  # the 3x3, 4x4 and 5x5 mazes of the experiment configs
+
+
+@pytest.mark.parametrize("n_rooms", N_ROOMS)
+def test_layout_image_and_env_equal_jax(n_rooms):
+    side = int(np.sqrt(n_rooms))
+    assert np.array_equal(p_layout.draw_layout_overview(side, 256),
+                          j_layout.draw_layout_overview(side, 256))
+    params = dict(ENV_PARAMS, n_rooms=n_rooms)
+    penv = p_env.TopdownMultiroom2dEnv(dict(params))
+    jenv = j_env.TopdownMultiroom2dEnv(dict(params))
     for seed in range(3):
         np.random.seed(seed)
         pobs, preset = penv.reset()
@@ -211,22 +217,23 @@ def test_layout_image_and_env_equal_jax():
         assert penv.eval()["final_dist"] == jenv.eval()["final_dist"]
 
 
-def _expert_rollout(agent_mod, policy_cls, env_cls, seed):
+def _expert_rollout(agent_mod, policy_cls, env_cls, seed, n_rooms=9):
     np.random.seed(seed)
     agent = agent_mod.GeneralAgent(dict(
-        env=(env_cls, dict(ENV_PARAMS)), T=40, make_final_gif=False,
+        env=(env_cls, dict(ENV_PARAMS, n_rooms=n_rooms)), T=40, make_final_gif=False,
         image_height=32, image_width=32))
     policy = policy_cls(dict(agent._hp), dict(max_traj_length=40),
                         **agent.env.env_policy_params())
     return agent.sample(policy, 0)
 
 
-def test_prm_expert_trajectory_equals_jax():
+@pytest.mark.parametrize("n_rooms", N_ROOMS)
+def test_prm_expert_trajectory_equals_jax(n_rooms):
     for seed in (0, 1):
         p_data, p_obs, p_out = _expert_rollout(p_agent, PrmPolicy,
-                                               p_env.TopdownMultiroom2dEnv, seed)
+                                               p_env.TopdownMultiroom2dEnv, seed, n_rooms)
         j_data, j_obs, j_out = _expert_rollout(j_agent, JPrmPolicy,
-                                               j_env.TopdownMultiroom2dEnv, seed)
+                                               j_env.TopdownMultiroom2dEnv, seed, n_rooms)
         assert len(p_out) == len(j_out) > 1
         assert np.array_equal(np.stack([o["actions"] for o in p_out]),
                               np.stack([o["actions"] for o in j_out]))
