@@ -21,7 +21,10 @@ Run from the root of the repository, with no arguments:
    25-room flagship's 16 x 200 frames and 16 x 255 nodes among them at one
    card, and the split plan call's chunks), the 25room phase's f32 sites
    (ROOM25_K1_SHAPES: the flagship's train step on 16 x 200 frames and 16 x
-   255 nodes, the 25-room control path's decoder on 255 n nodes), plus the
+   255 nodes, the 25-room control path's decoder on 255 n nodes), the long
+   phase's f32 sites (LONG_K1_SHAPES: both 500-frame models' train steps on
+   16 x 500 frames, the tree's decoder on 16 x 511 nodes, the VRNN's on 16 x
+   499 frames; the val, sweep and Evaluator batches of 1), plus the
    largest shape of the repo, [16352, 64, 64, 16] bf16. Prints per shape
    the kernel's time (CUDA events, median of 25), its own device time (torch.profiler, 10 calls,
    one profiler session over every shape, as in the K2 phase),
@@ -31,19 +34,21 @@ Run from the root of the repository, with no arguments:
    F.leaky_relu (a yardstick the port never calls); then, per
    path, the sums of the times and bounds over a plan call's, a B=16
    rollout's and a train step's K1 sites, in f32 and in bf16, and over
-   gcp_sequential's train step, a 25-room simulator call of 10 candidates
-   and the flagship's train step in f32.
+   gcp_sequential's train step, a 25-room simulator call of 10 candidates,
+   the flagship's train step and both 500-frame models' train steps in f32.
 3. K2 phase: K2 against its twin at the 15 norm shapes of a training step
    at B=16, T=100 (encoder on 1600 frames and on the 16 start and goal
    frames, decoder on 2032 nodes) in f32 and in bf16, at the 5 decoder
    shapes of 9room/gcp_sequential's train step (1,584 frames) in f32, and
    at the two largest of bench.py's train step in bf16, and at the dist
-   phase's training shapes in f32 (dist_kernel_shapes) and the 25room
-   phase's (ROOM25_K2_SHAPES). Inputs are moved
+   phase's training shapes in f32 (dist_kernel_shapes), the 25room
+   phase's (ROOM25_K2_SHAPES) and the long phase's (LONG_K2_SHAPES). Inputs
+   are moved
    clear of LeakyReLU's kink (fused_gn.clear_of_kink) so that both sign
    tests agree. Prints the same columns and the sums over a train step's
-   20 K2 sites in each dtype (and over gcp_sequential's 20 in f32); the
-   yardstick is the autograd backward of F.group_norm + F.leaky_relu.
+   20 K2 sites in each dtype (and over gcp_sequential's, the flagship's and
+   the 500-frame models' 20 in f32); the yardstick is the autograd backward
+   of F.group_norm + F.leaky_relu.
 4. K3 phase: K3 against its row-order twin on the card at the adaptive
    training shape [16, 127, 100] (B = 16 matrices of 127 nodes x 100
    frames) and at the largest shape the repo names, [16, 511, 500], with
@@ -178,6 +183,36 @@ Run from the root of the repository, with no arguments:
    (the agent's T). The K1 and K2 phases hold the kernels at this path's
    sites (ROOM25_K1_SHAPES, ROOM25_K2_SHAPES).
 
+10c. Long phase (right after the 25room phase): the 500-frame horizon at the
+   published widths, cut in depth only. The port's PRM expert makes 17
+   nav_25rooms_long trajectories (of the config's 400;
+   experiments/data_gen/nav_25rooms_long: T=500, 64x64 frames,
+   subsample_factor 0.5, variable lengths padded to 501 frames) in 8 spawned
+   workers into the h5 phase's data directory, each read back through
+   data/h5.py with its pad mask; 16 train one epoch of 4 steps at B=16 and
+   1 is the val split. 25room_long/gcp_tree (tied, L=9, 511 nodes, a 512x3
+   split_linear TreeLSTM, the 500-wide length head) trains from them
+   through ModelTrainer from its initialisation, one epoch of 4 steps at
+   B=16, T=500 and its val pass: 20 K1 and 20 K2 a step, 55 K1 in the val
+   pass, no K3, finite values, parameters that moved, one step card vs CPU
+   (TOLS_TRAIN). Its checkpoint then runs `--dataset_val_sweep 1` (the
+   val split of nav_9rooms at T=100, L=7, and of nav_25rooms_long at T=500,
+   L=9: both [dataset sweep] lines, the length head kept fresh at T=100,
+   finite val losses, 55 K1 at each horizon, the trainer's own model back
+   unchanged) and `--metric 1` (the Evaluator's top-of-100 under
+   'pruned_dtw' on the val batch of 1, the only cut: 15 K1 a sampled
+   forward, finite eval/ metrics). batched_dtw_alignment is timed at [1,
+   511, 500] and [16, 511, 500] with its device launches and held card vs
+   CPU at the larger (the same node indices, distances within 1e-5).
+   25room_long/gcp_sequential (the VRNN over 499 steps) trains likewise:
+   20 K1 and 20 K2 a step, 55 K1 in its val pass, one step card vs CPU.
+   Prints seconds per generated trajectory and the mean path length, each
+   model's synced ms a step, t_data, training frames/s, device-busy ms a
+   step and idle share, the peak device memory, the sweep's val losses, the
+   Evaluator's seconds a batch, the DTW's ms and launches, and the seconds
+   of each part. The K1 and K2 phases hold the kernels at this path's sites
+   (LONG_K1_SHAPES, LONG_K2_SHAPES).
+
 11. h5 phase (run right after the train phase): the port's PRM expert makes
    40 nav_9rooms trajectories on the host (experiments/data_gen/nav_9rooms,
    T=100, 128x128 frames, one a file) into a temporary GCP_DATA_DIR through
@@ -267,6 +302,11 @@ JSON.
 
 builds and runs only the 25room phase (no result line).
 
+    python3 chip_smoke.py --long-only
+
+builds, makes 2 nav_9rooms files for the sweep's val split and runs only
+the long phase (no result line).
+
     python3 chip_smoke.py --flip-probe WINDOWS
 
 builds, makes the h5 data and runs only flip_probe: VMPC trained as in the
@@ -274,7 +314,9 @@ baselines phase FLIP_PROBE_MODELS times, and its card-vs-CPU step on WINDOWS
 seeded windows of each, the CPU step once with the card's LeakyReLU branches
 at the K1 sites only and once with those at the MLPs' LeakyReLUs too.
 """
+import contextlib
 import functools
+import io
 import json
 import os
 import shutil
@@ -436,15 +478,50 @@ ROOM25_K2_SHAPES = ([(n,) + s for n in (TRAIN_B * FLAGSHIP_T, TRAIN_B) for s in 
                     + [(TRAIN_B * FLAGSHIP_NODES,) + s for s in DEC_SITES])
 ROOM25_K1_SHAPES = ROOM25_K2_SHAPES + [
     (n * FLAGSHIP_NODES,) + s for n in CONTROL_CANDIDATES for s in DEC_SITES]
+# the long phase: the 500-frame horizon. nav_25rooms_long from the PRM expert
+# (T=500, 64x64 frames stored, variable lengths padded to 501, one trajectory
+# a file; LONG_FILES of the config's 400): the global split 0.97 / 0.03 keeps
+# 16 of 17 files for training, one epoch of 4 batches of 16 at
+# epoch_cycles_train 4, and 1 for val, whose batch of 1 is the Evaluator's.
+# 25room_long/gcp_tree (tied, L=9, 511 nodes) and 25room_long/gcp_sequential
+# (the VRNN over 499 steps) train from them; the tree's checkpoint is swept
+# across both horizons (nav_9rooms, the h5 phase's, at T=100 and L=7) and
+# evaluated top-of-100 under 'pruned_dtw'
+LONG_DATA_GEN = "experiments/data_gen/nav_25rooms_long/mod_hyper.py"
+LONG_CONFS = {"gcp_tree": "experiments/prediction/25room_long/gcp_tree/conf.py",
+              "gcp_sequential": "experiments/prediction/25room_long/gcp_sequential/conf.py"}
+LONG_FILES, LONG_CONFIG_FILES, LONG_STEPS = 17, 400, 4
+LONG_T, LONG_NODES = 500, 2 ** 9 - 1  # max_seq_len; L=9
+LONG_LAYOUT = {"actions": ((500, 2), "float64"), "images": ((501, 1, 64, 64, 3), "uint8"),
+               "pad_mask": ((501,), "float64"), "states": ((501, 5), "float64")}
+LONG_EVAL_B = 1  # the val split's one file: the Evaluator's batch
+LONG_SWEEP = (("nav_9rooms", 100, 7), ("nav_25rooms_long", LONG_T, 9))  # (name, T, L)
+# launches of a val pass: the val step's 20 K1, the logged prior sample's 15
+# and the logged posterior pass's 20 (both models); the sweep makes one at
+# each horizon
+LONG_VAL_PASS = FINETUNE_VAL_PASS
+H5_SWEEP_FILES = 2  # --long-only: nav_9rooms files for the sweep's val split of 1
+# K1 and K2 at the long phase's sites: both models' train steps (the encoder
+# on 16 x 500 frames and on the 16 start and goal frames; the tree's decoder
+# on 16 x 511 nodes, the VRNN's on 16 x 499 frames); K1 also at the val and
+# Evaluator batch of 1 (the encoder on 500 frames, the decoders on 511 nodes
+# and 499 frames) and the sweep's at T=100 (100 frames; 127 nodes)
+LONG_K2_SHAPES = ([(n,) + s for n in (TRAIN_B * LONG_T, TRAIN_B) for s in ENC_SITES]
+                  + [(n,) + s for n in (TRAIN_B * LONG_NODES, TRAIN_B * (LONG_T - 1))
+                     for s in DEC_SITES])
+LONG_K1_SHAPES = LONG_K2_SHAPES + [
+    (n,) + s for n in (LONG_EVAL_B * LONG_T, LONG_EVAL_B, TRAIN_T) for s in ENC_SITES] + [
+    (n,) + s for n in (LONG_EVAL_B * LONG_NODES, LONG_EVAL_B * (LONG_T - 1), N_NODES)
+    for s in DEC_SITES]
 # the top shape of each path, where the K1 phase also times the plain twin
 # and the library call (the rows PERF.md's kernel table cites): the plan
 # call, the B=16 rollout, bench.py's bf16 decode, the control path,
-# gcp_sequential's training, VMPC's simulator call, and the 25-room control
-# path's and training's decoders
+# gcp_sequential's training, VMPC's simulator call, the 25-room control
+# path's and training's decoders, and the 500-frame tree's decoder
 K1_COMPARED = [((n, 32, 32, 16), "float32") for n in (
     CEM_BATCH * N_NODES, ROLLOUT_BATCH * N_NODES, CONTROL_CANDIDATES[0] * N_NODES,
     SEQ_DEC_BATCH, VMPC_CANDIDATES * (TRAIN_T - 1), CONTROL_CANDIDATES[0] * FLAGSHIP_NODES,
-    TRAIN_B * FLAGSHIP_NODES)] + [((32 * 511, 64, 64, 16), "bfloat16")]
+    TRAIN_B * FLAGSHIP_NODES, TRAIN_B * LONG_NODES)] + [((32 * 511, 64, 64, 16), "bfloat16")]
 
 
 def fail(msg):
@@ -603,7 +680,11 @@ def path_sums(tag, rows, keys, paths):
                  room25_sim_call=sites(CONTROL_CANDIDATES[0] * FLAGSHIP_NODES,
                                        [(CONTROL_CANDIDATES[0], 2)]),
                  train_step_room25=sites(TRAIN_B * FLAGSHIP_NODES,
-                                         [(TRAIN_B * FLAGSHIP_T, 1), (TRAIN_B, 2)]))
+                                         [(TRAIN_B * FLAGSHIP_T, 1), (TRAIN_B, 2)]),
+                 train_step_long=sites(TRAIN_B * LONG_NODES,
+                                       [(TRAIN_B * LONG_T, 1), (TRAIN_B, 2)]),
+                 train_step_long_sequential=sites(TRAIN_B * (LONG_T - 1),
+                                                  [(TRAIN_B * LONG_T, 1), (TRAIN_B, 2)]))
     out = {}
     for path in paths:
         for dtype, name in (("float32", path), ("bfloat16", f"{path}_bf16")):
@@ -663,8 +744,8 @@ def kernel_phase(torch, F, fused_gn, parent=None):
     cases += [((VMPC_CANDIDATES,) + s, "float32") for s in ENC_SITES]
     cases += [((VMPC_CANDIDATES * (TRAIN_T - 1),) + s, "float32") for s in DEC_SITES]
     cases += [(s, "float32") for s in dict.fromkeys(dist_kernel_shapes(torch)[0]
-                                                   + ROOM25_K1_SHAPES)
-              if (s, "float32") not in cases]  # the dist phase's ranks and chunks, 25room
+                                                   + ROOM25_K1_SHAPES + LONG_K1_SHAPES)
+              if (s, "float32") not in cases]  # the dist phase's ranks and chunks, 25room, long
     groups = 8
 
     def inputs(gen, shape, dtype):
@@ -743,7 +824,8 @@ def kernel_phase(torch, F, fused_gn, parent=None):
                  f"{row['parent_host_us']:.1f}" if parent else ""))
     sums = path_sums("K1", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
                      ("plan_call", "rollout", "train_step", "train_step_sequential",
-                      "room25_sim_call", "train_step_room25"))
+                      "room25_sim_call", "train_step_room25", "train_step_long",
+                      "train_step_long_sequential"))
     print(f"K1: {len(rows)} shapes checked against the twin and timed, the twin and "
           f"F.group_norm at the {len(K1_COMPARED)} top shapes only; seconds by part "
           + json.dumps({k: round(v, 2) for k, v in part_s.items()}))
@@ -764,7 +846,8 @@ def k2_phase(torch, F, fused_gn, parent=None):
     dist phase's ranks' among them)."""
     groups = 8
     shapes = K2_SHAPES + [(s, "float32") for s in dict.fromkeys(
-        dist_kernel_shapes(torch)[1] + ROOM25_K2_SHAPES) if (s, "float32") not in K2_SHAPES]
+        dist_kernel_shapes(torch)[1] + ROOM25_K2_SHAPES + LONG_K2_SHAPES)
+        if (s, "float32") not in K2_SHAPES]
 
     def inputs(gen, shape, dtype):
         dt, c = getattr(torch, dtype), shape[-1]
@@ -836,7 +919,8 @@ def k2_phase(torch, F, fused_gn, parent=None):
               + (f" | {row['parent_ms']:.4f} {fmt(row['parent_device_ms'])} "
                  f"{row['parent_host_us']:.1f}" if parent else ""))
     sums = path_sums("K2", rows, ("ms", "device_ms", "bound_ms", "parent_ms", "parent_device_ms"),
-                     ("train_step", "train_step_sequential", "train_step_room25"))
+                     ("train_step", "train_step_sequential", "train_step_room25",
+                      "train_step_long", "train_step_long_sequential"))
     return rows, sums
 
 
@@ -2091,8 +2175,8 @@ def step_busy_ms(torch, trainer, step_fn):
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 or None
 
 
-def make_h5_data():
-    """H5_FILES nav_9rooms trajectories by the port's PRM expert, written
+def make_h5_data(n_files=H5_FILES):
+    """`n_files` nav_9rooms trajectories by the port's PRM expert, written
     as h5 files under EXP_DIR. Returns their directory and the seconds."""
     from video_gcp_torch.planning.run import ControlManager
 
@@ -2103,7 +2187,7 @@ def make_h5_data():
     os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
     t0 = time.perf_counter()
     ControlManager([str(_config_copy(H5_DATA_GEN)), "--device", "cpu", "--start_idx", "0",
-                    "--end_idx", str(H5_FILES - 1), "--seed", str(SEED)]).run()
+                    "--end_idx", str(n_files - 1), "--seed", str(SEED)]).run()
     return data_dir, time.perf_counter() - t0
 
 
@@ -2314,8 +2398,8 @@ def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag,
     nav_9rooms unless given) through ModelTrainer from the port's
     initialisation: one epoch and a val pass. Checks `per_step` (K1, K2,
     K3) launches a step, finite losses, gradients and val losses, and that
-    some parameter moved. Returns the trainer, each step's metrics and the
-    launches."""
+    some parameter moved. Returns the trainer, each step's metrics, the
+    launches and a step's device-busy ms."""
     os.environ["GCP_DATA_DIR"] = str(data_dir or EXP_DIR / "h5_data")
     os.environ["GCP_EXP_DIR"] = str(EXP_DIR)
     args = trainer_mod.parse_args([
@@ -2348,7 +2432,7 @@ def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag,
     print(f"{tag}: last step " + json.dumps(
         {k: float(f"{float(v):.6g}") for k, v in steps[-1][3].items() if v.dim() == 0}))
     print(f"{tag}: val " + json.dumps({k: float(f"{v:.6g}") for k, v in vals[0].items()}))
-    return trainer, [s[3] for s in steps], launches
+    return trainer, [s[3] for s in steps], launches, busy
 
 
 def flip_probe(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
@@ -2367,8 +2451,8 @@ def flip_probe(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader
     print(f"flip_probe: {H5_FILES} nav_9rooms trajectories in {gen_s:.2f} s")
     rows = []
     for m in range(models):
-        trainer, _, _ = baseline_train(torch, fused_gn, soft_dtw, trainer_mod,
-                                       vmpc_conf.parent, VMPC_PER_STEP, "vmpc")
+        trainer, _, _, _ = baseline_train(torch, fused_gn, soft_dtw, trainer_mod,
+                                          vmpc_conf.parent, VMPC_PER_STEP, "vmpc")
         trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
 
         def make_model(device):
@@ -2522,7 +2606,7 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
     # 2. VMPC: trained 4 steps, then CEM over action sequences
     vmpc_conf = _write("experiments/prediction/9room/vmpc/conf.py",
                        (SEQ_CONF / "conf.py").read_text() + VMPC_OVERRIDES)
-    trainer, steps, launches["vmpc_train"] = baseline_train(
+    trainer, steps, launches["vmpc_train"], _ = baseline_train(
         torch, fused_gn, soft_dtw, trainer_mod, vmpc_conf.parent, VMPC_PER_STEP, "vmpc")
     if any(float(m["kl"]) != 0.0 for m in steps):
         fail(f"vmpc: non-zero KL {[float(m['kl']) for m in steps]} (nz_vae = 0)")
@@ -2554,7 +2638,7 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
 
     # 3. goal-conditioned BC (reactive): trained 4 steps, then one task
     bc_conf = _write("experiments/prediction/9room/bc/conf.py", BC_CONF)
-    trainer, _, launches["bc_train"] = baseline_train(
+    trainer, _, launches["bc_train"], _ = baseline_train(
         torch, fused_gn, soft_dtw, trainer_mod, bc_conf.parent,
         (BC_NORMS_PER_STEP, BC_NORMS_PER_STEP, 0), "bc")
     trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
@@ -2644,68 +2728,93 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
 # the 25room phase: the paper's 25-room long-horizon path
 # ---------------------------------------------------------------------------
 
-def room25_data(tag):
-    """ROOM25_FILES nav_25rooms trajectories by the port's PRM expert in
-    ROOM25_GEN_WORKERS spawned workers (worker i seeded SEED + i), each file
-    read back through data/h5.py. Returns their directory."""
+def maze_data(tag, data_gen, data_dir, name, n_files, layout):
+    """`n_files` trajectories of the dataset `name` by the port's PRM expert
+    from a copy of the config `data_gen`, in ROOM25_GEN_WORKERS spawned
+    workers (worker i seeded SEED + i), into `data_dir`/`name`; each file
+    read back through data/h5.py: its keys, shapes and dtypes against
+    `layout`, its pad mask a prefix of ones, its states finite. Returns the
+    trajectories' lengths in frames, the generation's and the read's
+    seconds."""
     from video_gcp_torch.data import h5
     from video_gcp_torch.planning.run import ControlManager
 
-    data_dir = EXP_DIR / "h5_25"
-    shutil.rmtree(data_dir, ignore_errors=True)
+    shutil.rmtree(data_dir / name, ignore_errors=True)
     os.environ["GCP_DATA_DIR"] = str(data_dir)
     t0 = time.perf_counter()
-    ControlManager([str(_config_copy(ROOM25_DATA_GEN)), "--device", "cpu", "--nworkers",
+    ControlManager([str(_config_copy(data_gen)), "--device", "cpu", "--nworkers",
                     str(ROOM25_GEN_WORKERS), "--start_idx", "0", "--end_idx",
-                    str(ROOM25_FILES - 1), "--seed", str(SEED)]).run()
+                    str(n_files - 1), "--seed", str(SEED)]).run()
     gen_s = time.perf_counter() - t0
-    files = sorted((data_dir / "nav_25rooms").glob("*.h5"))
-    if len(files) != ROOM25_FILES:
-        fail(f"{tag}: the data generation wrote {len(files)} files, expected {ROOM25_FILES}")
+    files = sorted((data_dir / name).glob("*.h5"))
+    if len(files) != n_files:
+        fail(f"{tag}: the data generation wrote {len(files)} files, expected {n_files}")
     t0 = time.perf_counter()
+    lengths = []
     for path in files:
         with h5.File(path, "r") as f:
             got = {k: (f[f"traj0/{k}"].shape, str(f[f"traj0/{k}"].dtype)) for k in f["traj0"]}
-            if list(f) != ["traj0", "traj_per_file"] or got != ROOM25_LAYOUT:
+            if list(f) != ["traj0", "traj_per_file"] or got != layout:
                 fail(f"{tag}: {path.name} holds {list(f)}, traj0 {got}")
             if not np.isfinite(f["traj0/states"][()]).all():
                 fail(f"{tag}: {path.name} has non-finite states")
+            pad = f["traj0/pad_mask"][()]
+            n = int(pad.sum())
+            if n < 2 or not (pad[:n] == 1).all():
+                fail(f"{tag}: {path.name}'s pad mask is no prefix of ones: {pad}")
+            lengths.append(n)
+    return lengths, gen_s, time.perf_counter() - t0
+
+
+def room25_data(tag):
+    """ROOM25_FILES nav_25rooms trajectories (maze_data). Returns their
+    directory."""
+    data_dir = EXP_DIR / "h5_25"
+    _, gen_s, read_s = maze_data(tag, ROOM25_DATA_GEN, data_dir, "nav_25rooms", ROOM25_FILES,
+                                 ROOM25_LAYOUT)
     print(f"{tag}: {ROOM25_FILES} nav_25rooms trajectories (T={FLAGSHIP_T}, 128x128) by the PRM "
           f"expert (host, {ROOM25_GEN_WORKERS} workers) in {gen_s:.2f} s, "
           f"{gen_s / ROOM25_FILES:.3f} s per trajectory; read back through data/h5.py in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{read_s:.2f} s")
     return data_dir
 
 
-def room25_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
-                 load_model, data_dir, tag):
-    """25room/gcp_tree trained from the nav_25rooms files in `data_dir`
-    (baseline_train: one epoch of ROOM25_STEPS steps at B=16, T=200 and its
-    val pass from the port's initialisation), then one step card vs CPU.
-    Returns the launches."""
-    conf = _config_copy(ROOM25_CONF).parent
-    shutil.rmtree(EXP_DIR / "prediction/25room/gcp_tree", ignore_errors=True)
+def maze_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+               load_model, conf_rel, data_dir, tag, dataset_cls, n_steps, val_pass):
+    """The config `conf_rel` (a copy under the build directory) trained
+    from the h5 files in `data_dir` (baseline_train: one epoch of `n_steps`
+    steps at B=16 and its val pass from the port's initialisation, 20 K1
+    and 20 K2 a step, `val_pass` launches in the val pass), then one step
+    card vs CPU. Prints the peak device memory, t_data, the warm ms a step,
+    training frames/s, the device-busy ms a step and the idle share.
+    Returns the launches and the config's directory."""
+    conf = _config_copy(conf_rel).parent
+    exp = EXP_DIR / conf.relative_to(EXP_DIR / "experiments")
+    shutil.rmtree(exp, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     per_step = (NORMS_PER_STEP, NORMS_PER_STEP, 0)
-    trainer, _, launches = baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf,
-                                          per_step, tag, data_dir=data_dir)
+    trainer, _, launches, busy = baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf,
+                                                per_step, tag, data_dir=data_dir)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     dataset = trainer.train_loader.dataset
-    if type(dataset).__name__ != "Nav25Rooms" or len(trainer.train_loader) != ROOM25_STEPS:
+    if type(dataset).__name__ != dataset_cls or len(trainer.train_loader) != n_steps:
         fail(f"{tag}: dataset {type(dataset).__name__}, {len(trainer.train_loader)} steps")
-    val_pass = tuple(n - ROOM25_STEPS * k for n, k in zip(launches, per_step))
-    if val_pass != ROOM25_VAL_PASS:
-        fail(f"{tag}: K1/K2/K3 launches in the val pass {val_pass}, expected {ROOM25_VAL_PASS}")
-    ckpt = EXP_DIR / "prediction/25room/gcp_tree/weights/weights_ep0/state.pt"
+    got_val = tuple(n - n_steps * k for n, k in zip(launches, per_step))
+    if got_val != val_pass:
+        fail(f"{tag}: K1/K2/K3 launches in the val pass {got_val}, expected {val_pass}")
+    ckpt = exp / "weights/weights_ep0/state.pt"
     if not ckpt.is_file():
         fail(f"{tag}: the trainer wrote no {ckpt}")
     trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
     warm = statistics.median(trainer.step_seconds[1:])
+    t = dataset.max_seq_len
+    idle = f"{1 - busy / (warm * 1e3):.3f}" if busy else "n/m"
     print(f"{tag}: {sum(v.numel() for v in trained.values())} parameters; K1/K2/K3 launches "
-          f"in the val pass {val_pass}; t_data ms "
-          f"{[round(t * 1e3, 1) for t in trainer.data_seconds]}; warm ms per step (median "
-          f"of steps 1-{ROOM25_STEPS - 1}) {warm * 1e3:.2f}; training frames/s "
-          f"{TRAIN_B * FLAGSHIP_T / warm:.1f}; peak device memory {peak_gib:.3f} GiB")
+          f"in the val pass {got_val}; t_data ms "
+          f"{[round(s * 1e3, 1) for s in trainer.data_seconds]}; warm ms per step (median "
+          f"of steps 1-{n_steps - 1}) {warm * 1e3:.2f}; training frames/s "
+          f"{TRAIN_B * t / warm:.1f}; device busy {fmt(busy)} ms a step, idle share {idle}; "
+          f"peak device memory {peak_gib:.3f} GiB")
     del trainer
     torch.cuda.empty_cache()
 
@@ -2715,7 +2824,7 @@ def room25_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoad
         return model
 
     train_vs_cpu(torch, make_model, AttrDict, distributions, DataLoader, dataset, tag)
-    return launches
+    return launches, conf
 
 
 def room25_control(torch, fused_gn, soft_dtw, AttrDict, name):
@@ -2773,9 +2882,10 @@ def room25_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoad
     control_setup(torch, "room25")  # the base configs' copy, GCP_EXP_DIR
     data_dir = room25_data("room25_data")
     lap("data")
-    launches["room25_train"] = room25_train(
+    launches["room25_train"], _ = maze_train(
         torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
-        load_model, data_dir, "room25_train")
+        load_model, ROOM25_CONF, data_dir, "room25_train", "Nav25Rooms", ROOM25_STEPS,
+        ROOM25_VAL_PASS)
     lap("train")
     os.environ["GCP_DATA_DIR"] = str(EXP_DIR / "data")
     text = (ROOT / DATA_GEN).read_text()
@@ -2806,6 +2916,190 @@ def room25_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoad
     if any(v[2] for v in launches.values()):
         fail(f"room25: K3 launched {launches}")
     print("room25: seconds of each part " + json.dumps(laps) + "; K1/K2/K3 launches "
+          + json.dumps(launches))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the long phase: the 500-frame horizon
+# ---------------------------------------------------------------------------
+
+def long_data(tag, data_dir):
+    """LONG_FILES nav_25rooms_long trajectories (maze_data) into `data_dir`,
+    beside the nav_9rooms files that the sweep reads."""
+    lengths, gen_s, read_s = maze_data(tag, LONG_DATA_GEN, data_dir, "nav_25rooms_long",
+                                       LONG_FILES, LONG_LAYOUT)
+    print(f"{tag}: {LONG_FILES} nav_25rooms_long trajectories (of the config's "
+          f"{LONG_CONFIG_FILES}; T={LONG_T}, 64x64, subsample_factor 0.5) by the PRM expert "
+          f"(host, {ROOM25_GEN_WORKERS} workers) in {gen_s:.2f} s, {gen_s / LONG_FILES:.3f} s "
+          f"per trajectory; path length {statistics.mean(lengths) - 1:.1f} steps on average "
+          f"({min(lengths) - 1}-{max(lengths) - 1}); read back through data/h5.py with their "
+          f"pad masks in {read_s:.2f} s")
+
+
+def _trainer_run(trainer_mod, conf, flags):
+    """A ModelTrainer of the checkpoint that the long phase trained, for
+    --dataset_val_sweep or --metric."""
+    args = trainer_mod.parse_args(["--path", str(conf), "--resume", "latest",
+                                   "--deterministic", "1", *flags])
+    return trainer_mod.ModelTrainer(args)  # device 'cuda', the default
+
+
+def _run_captured(trainer):
+    """trainer.run(), its printed lines echoed and returned."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            trainer.run()
+    finally:
+        print(buf.getvalue(), end="")
+    return buf.getvalue().splitlines()
+
+
+def long_sweep(torch, fused_gn, soft_dtw, trainer_mod, conf, tag):
+    """`--dataset_val_sweep 1` on the trained tree: its val pass at each of
+    LONG_SWEEP's horizons, the model rebuilt at that depth. Checks both
+    [dataset sweep] lines, the length head kept fresh at T=100 (its head is
+    max_seq_len wide), finite val losses, LONG_VAL_PASS launches at each
+    horizon, and the trainer's own model back, unchanged, afterwards.
+    Returns the launches."""
+    trainer = _trainer_run(trainer_mod, conf, ["--dataset_val_sweep", "1"])
+    model, val_loader = trainer.model, trainer.val_loader
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    vals, real_val = [], trainer.val
+    trainer.val = lambda epoch: vals.append(real_val(epoch)) or vals[-1]
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    t0 = time.perf_counter()
+    lines = _run_captured(trainer)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    for name, t, lv in LONG_SWEEP:
+        if f"[dataset sweep] {name} (T={t}, L={lv})" not in lines:
+            fail(f"{tag}: no [dataset sweep] line for {name} at T={t}, L={lv}")
+    fresh = [ln for ln in lines if "horizon-dependent params kept fresh" in ln]
+    if len(fresh) != 1 or "length_pred." not in fresh[0]:
+        fail(f"{tag}: the length head was not reported kept fresh once: {fresh}")
+    if len(vals) != len(LONG_SWEEP) or not all(np.isfinite(v) for val in vals
+                                               for v in val.values()):
+        fail(f"{tag}: val losses {vals}")
+    want = tuple(len(LONG_SWEEP) * n for n in LONG_VAL_PASS)
+    if launches != want:
+        fail(f"{tag}: K1/K2/K3 launches {launches}, expected {want}")
+    if trainer.model is not model or trainer.val_loader is not val_loader or not all(
+            torch.equal(v, before[k]) for k, v in model.state_dict().items()):
+        fail(f"{tag}: the trainer's own model is not back unchanged after the sweep")
+    print(f"{tag}: {len(LONG_SWEEP)} horizons in {sec:.2f} s; K1/K2/K3 launches {launches} = "
+          f"{LONG_VAL_PASS} a val pass; val total loss by horizon "
+          + json.dumps({f"T={t}": float(f"{v['total']:.6g}")
+                        for (_, t, _), v in zip(LONG_SWEEP, vals)}))
+    return launches
+
+
+def long_eval(torch, fused_gn, soft_dtw, trainer_mod, conf, tag):
+    """`--metric 1` on the trained tree: the Evaluator's top-of-100 under
+    the config's 'pruned_dtw' on the val split (one batch of LONG_EVAL_B, the
+    only cut). Checks 15 K1 a sampled forward, no K2 or K3, and finite
+    eval/... metrics; then long_dtw. Returns the launches."""
+    from video_gcp_torch.evaluation.evaluator import Evaluator
+
+    trainer = _trainer_run(trainer_mod, conf, ["--metric", "1"])
+    if (trainer.conf["metric_pruning_scheme"], trainer.conf["top_of_100_eval"]) != (
+            "pruned_dtw", True):
+        fail(f"{tag}: scheme {trainer.conf['metric_pruning_scheme']}, top_of_100 "
+             f"{trainer.conf['top_of_100_eval']}")
+    if (len(trainer.val_loader), len(trainer.val_loader.dataset)) != (1, LONG_EVAL_B):
+        fail(f"{tag}: {len(trainer.val_loader)} val batches of {len(trainer.val_loader.dataset)} "
+             f"examples, expected one of {LONG_EVAL_B}")
+    summaries, real = [], trainer.run_metric_eval
+    trainer.run_metric_eval = lambda: summaries.append(real()) or summaries[-1]
+    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _run_captured(trainer)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    n_samples = 100 + Evaluator.N_PLOTTED_ELEMENTS
+    if launches != (15 * n_samples, 0, 0):
+        fail(f"{tag}: K1/K2/K3 launches {launches} for {n_samples} sampled forwards, "
+             f"expected 15 K1 each")
+    summary, = summaries
+    if not summary or not all(np.isfinite(v) for v in summary.values()):
+        fail(f"{tag}: eval metrics {summary}")
+    print(f"{tag}: Evaluator 'pruned_dtw' top-of-100 on a val batch of {LONG_EVAL_B} (the only "
+          f"cut), T={LONG_T}, {LONG_NODES} nodes: {sec:.3f} s per batch, "
+          f"{100 * LONG_EVAL_B * LONG_NODES / sec:.0f} decoded frames/s; K1 launches "
+          f"{launches[0]} = 15 x {n_samples} sampled forwards; eval/ "
+          + json.dumps({k: float(f"{v:.6g}") for k, v in summary.items()}))
+    del trainer
+    long_dtw(torch, tag, n_samples)
+    return launches
+
+
+def long_dtw(torch, tag, n_samples):
+    """One batched_dtw_alignment at [1, 511, 500] and [16, 511, 500] on
+    random costs with mixed ends: its ms (CUDA events); at the larger its
+    device launches (torch.profiler; they do not depend on B) and a check
+    against the CPU: the same node indices, distances within 1e-5
+    relative."""
+    from video_gcp_torch.ops.dtw import batched_dtw_alignment
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    for b in (LONG_EVAL_B, TRAIN_B):
+        cost = torch.rand(b, LONG_NODES, LONG_T, generator=gen, device="cuda")
+        ends = torch.tensor([LONG_T - 1, 403, 217, 5], device="cuda")[
+            torch.arange(b, device="cuda") % 4]  # mixed ends
+        ms = time_ms(torch, lambda: batched_dtw_alignment(cost, ends), reps=3, warmup=1)
+        print(f"{tag}: batched_dtw_alignment at [{b}, {LONG_NODES}, {LONG_T}]: {ms:.2f} ms "
+              f"(CUDA events, median of 3); x {n_samples} a batch of the Evaluator")
+    per_call = kernels_per_call(torch, lambda: batched_dtw_alignment(cost, ends), reps=1)
+    print(f"{tag}: batched_dtw_alignment: {per_call:g} device kernels a call (torch.profiler)")
+    inds, dist = batched_dtw_alignment(cost, ends)
+    inds_cpu, dist_cpu = batched_dtw_alignment(cost.cpu(), ends.cpu())
+    dist_d = ((dist.cpu() - dist_cpu).abs() / dist_cpu.abs().clamp(min=1e-30)).max().item()
+    if not torch.equal(inds.cpu(), inds_cpu) or not dist_d < 1e-5:
+        fail(f"{tag}: DTW card vs CPU at {list(cost.shape)}: node indices equal "
+             f"{torch.equal(inds.cpu(), inds_cpu)}, distances {dist_d}")
+    print(f"{tag}: batched_dtw_alignment card vs CPU at {list(cost.shape)}: the same node "
+          f"indices, distances within {dist_d:.3e} (relative)")
+
+
+def long_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+               load_model):
+    """The 500-frame horizon on the card (see the module's docstring, 10c).
+    Returns each part's K1/K2/K3 launches."""
+    launches, laps, clock = {}, {}, [time.perf_counter()]
+
+    def lap(what):  # seconds of each part
+        now = time.perf_counter()
+        laps[what] = round(now - clock[0], 2)
+        clock[0] = now
+
+    control_setup(torch, "long")  # the base configs' copy, GCP_EXP_DIR
+    data_dir = EXP_DIR / "h5_data"
+    if not (data_dir / "nav_9rooms").is_dir():
+        fail("long: no nav_9rooms files from the h5 phase for the sweep")
+    long_data("long_data", data_dir)
+    lap("data")
+    launches["long_train"], conf = maze_train(
+        torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+        load_model, LONG_CONFS["gcp_tree"], data_dir, "long_train",
+        "GlobalSplitVarLenVideoDataset", LONG_STEPS, LONG_VAL_PASS)
+    lap("train")
+    launches["long_sweep"] = long_sweep(torch, fused_gn, soft_dtw, trainer_mod, conf,
+                                        "long_sweep")
+    lap("sweep")
+    launches["long_eval"] = long_eval(torch, fused_gn, soft_dtw, trainer_mod, conf, "long_eval")
+    lap("eval")
+    launches["long_sequential"], _ = maze_train(
+        torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
+        load_model, LONG_CONFS["gcp_sequential"], data_dir, "long_sequential",
+        "GlobalSplitVarLenVideoDataset", LONG_STEPS, LONG_VAL_PASS)
+    lap("sequential")
+    if any(v[2] for v in launches.values()):
+        fail(f"long: K3 launched {launches}")
+    print("long: seconds of each part " + json.dumps(laps) + "; K1/K2/K3 launches "
           + json.dumps(launches))
     return launches
 
@@ -3210,6 +3504,9 @@ def main():
                     help="build, then run only flip_probe over WINDOWS windows (no result line)")
     ap.add_argument("--room25-only", action="store_true",
                     help="build, then run only the 25room phase (no result line)")
+    ap.add_argument("--long-only", action="store_true",
+                    help="build, make the sweep's nav_9rooms files, then run only the long "
+                         "phase (no result line)")
     ap.add_argument("--dist-rank", choices=("trainer", "steps"), help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3286,6 +3583,13 @@ def main():
         print(f"seconds per phase: {json.dumps(phase_s)}")
         print(gpu_name_and_power_limit())
         return
+    if args.long_only:
+        timed_phase("h5_data", make_h5_data, H5_SWEEP_FILES)
+        timed_phase("long", long_phase, torch, fused_gn, soft_dtw, trainer_mod, distributions,
+                    DataLoader, AttrDict, load_model)
+        print(f"seconds per phase: {json.dumps(phase_s)}")
+        print(gpu_name_and_power_limit())
+        return
     if args.flip_probe:
         timed_phase("flip_probe", flip_probe, torch, fused_gn, soft_dtw, trainer_mod,
                     distributions, DataLoader, AttrDict, load_model, args.flip_probe)
@@ -3358,6 +3662,8 @@ def main():
     plan_k1 = timed_phase("plan", plan_phase, torch, fused_gn, soft_dtw, AttrDict)
     room25_launches = timed_phase("room25", room25_phase, torch, fused_gn, soft_dtw, trainer_mod,
                                   distributions, DataLoader, AttrDict, load_model)
+    long_launches = timed_phase("long", long_phase, torch, fused_gn, soft_dtw, trainer_mod,
+                                distributions, DataLoader, AttrDict, load_model)
     dist_launches = timed_phase("dist", dist_phase, torch, fused_gn, soft_dtw, model,
                                 load_model, AttrDict, distributions, DataLoader,
                                 trainer.train_loader.dataset)
@@ -3382,6 +3688,7 @@ def main():
                   **{f"h5_train_{n}": v[0] for n, v in h5_launches.items()},
                   **{k: v[0] for k, v in base_launches.items()},
                   **{k: v[0] for k, v in room25_launches.items()},
+                  **{k: v[0] for k, v in long_launches.items()},
                   **{k: v[0] for k, v in dist_launches.items()})),
         line("gn_lrelu_bwd", k2_rows, [TRAIN_B * N_NODES, 32, 32, 16], "float32",
              "video_gcp_tpu/ops/fused_gn.py:141",
@@ -3391,6 +3698,7 @@ def main():
                   **{f"h5_train_{n}": v[1] for n, v in h5_launches.items()},
                   **{k: v[1] for k, v in base_launches.items()},
                   **{k: v[1] for k, v in room25_launches.items()},
+                  **{k: v[1] for k, v in long_launches.items()},
                   **{k: v[1] for k, v in dist_launches.items()})),
         line("soft_dtw", k3_rows, list(K3_SHAPES[0]), "float32",
              "video_gcp_tpu/ops/pallas_dtw.py:29",
@@ -3400,6 +3708,7 @@ def main():
                   **{f"h5_train_{n}": v[2] for n, v in h5_launches.items()},
                   **{k: v[2] for k, v in base_launches.items()},
                   **{k: v[2] for k, v in room25_launches.items()},
+                  **{k: v[2] for k, v in long_launches.items()},
                   **{k: v[2] for k, v in dist_launches.items()}),
              source=soft_dtw.SOURCE),
     ]
