@@ -1,0 +1,3 @@
+"""Share of the profiled pass in which no operation ran on the device: 1 -
+the union of device-operation intervals over the pass's wall time."""
+from gcpbench.readers import device_idle as read  # noqa: F401
