@@ -76,7 +76,7 @@ Run from the root of the repository, with no arguments:
    Checks 20 K1 and 20 K2 launches per step, finite losses, finite
    gradients, and that every parameter with a gradient changed; prints the
    warm ms per step (median of steps 3-31), training frames/s, the peak
-   device memory and BWD_DY_COPIES. Then one step of ep74 on 2 examples
+   device memory and k2.dy_copies. Then one step of ep74 on 2 examples
    whose order and windows are drawn from SEED (vs_cpu_batch), with the
    same injected noise and the card's LeakyReLU branches at the K1 sites
    (SharedSigns), on the card and on the CPU: every loss term and every
@@ -328,6 +328,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+from video_gcp_torch import tracing
+from video_gcp_torch.tracing import COUNTS
 
 T_STARTED = time.time()  # this process's start, for the dist ranks' time line
 ROOT = Path(__file__).resolve().parent
@@ -1064,7 +1067,7 @@ def slice_phase(torch, fused_gn, load_model, AttrDict):
             if not torch.isfinite(t).all():
                 fail(f"non-finite {k}")
 
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = 0  # the serving path starts
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = 0  # the serving path starts
     rollouts, calls, per_forward = [], [], []
     with torch.inference_mode():
         rollout_in = AttrDict(I_0=images(ROLLOUT_BATCH), I_g=images(ROLLOUT_BATCH),
@@ -1072,13 +1075,13 @@ def slice_phase(torch, fused_gn, load_model, AttrDict):
         for _ in range(2):  # the first call includes cuDNN's set-up
             rollout_in.z = torch.randn(ROLLOUT_BATCH, N_NODES, 256, generator=gen,
                                        device="cuda")
-            before = fused_gn.LAUNCHES
+            before = COUNTS["k1.launches"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = model(rollout_in, phase="test", mode="prior", generator=gen)
             torch.cuda.synchronize()
             rollouts.append(time.perf_counter() - t0)
-            per_forward.append(fused_gn.LAUNCHES - before)
+            per_forward.append(COUNTS["k1.launches"] - before)
             check_finite(out, ("images", "e_g_prime", "existence_logits"))
         if out.tree.images.shape != (ROLLOUT_BATCH, N_NODES, 32, 32, 3):
             fail(f"rollout images shape {tuple(out.tree.images.shape)}")
@@ -1090,18 +1093,18 @@ def slice_phase(torch, fused_gn, load_model, AttrDict):
         torch.cuda.reset_peak_memory_stats()
         for _ in range(CEM_ITERS):
             plan_in.z = torch.randn(CEM_BATCH, N_NODES, 256, generator=gen, device="cuda")
-            before = fused_gn.LAUNCHES
+            before = COUNTS["k1.launches"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             plan = model(plan_in, phase="plan", mode="prior", pred_length=True,
                          generator=gen)
             torch.cuda.synchronize()
             calls.append(time.perf_counter() - t0)
-            per_forward.append(fused_gn.LAUNCHES - before)
+            per_forward.append(COUNTS["k1.launches"] - before)
             check_finite(plan, ("images", "e_g_prime", "timeline_images",
                                 "timeline_latents", "actions", "regressed_state"))
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = fused_gn.LAUNCHES
+    launches = COUNTS["k1.launches"]
     if per_forward != [15] * (len(rollouts) + CEM_ITERS):
         fail(f"K1 launches per forward {per_forward}, expected 15 each")
     print(f"slice: K1 launches per forward {per_forward}")
@@ -1161,10 +1164,10 @@ def bf16_phase(torch, fused_gn, load_model, AttrDict, train_step_mod, f32_model,
                 for _ in range(calls):
                     inp.z = torch.randn(inp.I_0.shape[0], N_NODES, 256, generator=gen,
                                         device="cuda")
-                    before = fused_gn.LAUNCHES
+                    before = COUNTS["k1.launches"]
                     out, sec = timed(lambda: m(inp, mode="prior", generator=gen, **kw))
                     secs[name].append(sec)
-                    per_forward.append(fused_gn.LAUNCHES - before)
+                    per_forward.append(COUNTS["k1.launches"] - before)
                     for k in ("images", "e_g_prime"):
                         if out.tree[k].dtype != torch.float32 or not torch.isfinite(
                                 out.tree[k]).all():
@@ -1174,9 +1177,9 @@ def bf16_phase(torch, fused_gn, load_model, AttrDict, train_step_mod, f32_model,
         return secs, last_rollout, per_forward
 
     f32_secs = serve(f32_model, BF16_WARM)[0]  # warm since the slice phase
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = 0  # the bf16 serving path starts
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = 0  # the bf16 serving path starts
     secs, roll_out, per_forward = serve(model, 1 + BF16_WARM)  # cold, then warm
-    serve_launches = fused_gn.LAUNCHES
+    serve_launches = COUNTS["k1.launches"]
     if per_forward != [15] * (2 + 2 * BF16_WARM) or norm_dtypes != {torch.bfloat16}:
         fail(f"bf16: K1 launches per forward {per_forward}, norm inputs {norm_dtypes}")
 
@@ -1216,10 +1219,10 @@ def bf16_phase(torch, fused_gn, load_model, AttrDict, train_step_mod, f32_model,
         opt = train_step_mod.make_optimizer([p for _, p in named], "radam", 2e-4)
         steps, secs = [], []
         for i, batch in enumerate(batches):
-            k1, k2 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES
+            k1, k2 = COUNTS["k1.launches"], COUNTS["k2.launches"]
             met, sec = timed(lambda: train_step_mod.train_step(m, opt, batch, i, gen))
             secs.append(sec)
-            steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2))
+            steps.append((COUNTS["k1.launches"] - k1, COUNTS["k2.launches"] - k2))
             if not bool(met.grads_finite) or not all(torch.isfinite(v).all()
                                                      for v in met.values()):
                 fail(f"train ({m.dtype}): non-finite metrics at step {i}")
@@ -1228,10 +1231,10 @@ def bf16_phase(torch, fused_gn, load_model, AttrDict, train_step_mod, f32_model,
     f32_secs = train(f32_train_model)[2]
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     before = [p.detach().clone() for _, p in named]
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = 0  # the bf16 training path starts
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = 0  # the bf16 training path starts
     norm_dtypes.clear()
     named, steps, secs, met = train(model)
-    train_launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    train_launches = (COUNTS["k1.launches"], COUNTS["k2.launches"])
     if set(steps) != {(NORMS_PER_STEP, NORMS_PER_STEP)} or norm_dtypes != {torch.bfloat16}:
         fail(f"bf16 train: K1/K2 launches per step {steps}, norm inputs {norm_dtypes}")
     if {p.dtype for _, p in named} != {torch.float32} or {
@@ -1267,16 +1270,16 @@ def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader,
     ev = Evaluator(model, str(out_dir), {}, TRAIN_T, "basic")
     gen = torch.Generator("cuda").manual_seed(123)
     n_samples = 100 + ev.N_PLOTTED_ELEMENTS
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0  # eval starts
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0  # eval starts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = ev.eval(batch, gen)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = fused_gn.LAUNCHES
-    if launches != 15 * n_samples or fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
+    launches = COUNTS["k1.launches"]
+    if launches != 15 * n_samples or COUNTS["k2.launches"] or COUNTS["k3.launches"]:
         fail(f"eval: {launches} K1 launches for {n_samples} sampled forwards, expected 15 "
-             f"each; K2 {fused_gn.BWD_LAUNCHES}, K3 {soft_dtw.LAUNCHES}")
+             f"each; K2 {COUNTS["k2.launches"]}, K3 {COUNTS["k3.launches"]}")
     for k, v in res.metrics.items():
         if v.shape != (TRAIN_B, 100) or not np.isfinite(v).all():
             fail(f"eval: {k} {v.shape}, finite {np.isfinite(v).all()}")
@@ -1351,16 +1354,17 @@ def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader,
         ev_g = Evaluator(model, str(out_dir / scheme), {}, TRAIN_T, scheme)
         ev_g._top_of = GREEDY_TOP_OF
         n_g = GREEDY_TOP_OF + min(ev_g.N_PLOTTED_ELEMENTS, GREEDY_TOP_OF)
-        fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0  # the scheme starts
+        # the scheme starts
+        COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res_g = ev_g.eval(batch, gen)
         torch.cuda.synchronize()
         sec_g = time.perf_counter() - t0
-        k1 = fused_gn.LAUNCHES
-        if k1 != 15 * n_g or fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
+        k1 = COUNTS["k1.launches"]
+        if k1 != 15 * n_g or COUNTS["k2.launches"] or COUNTS["k3.launches"]:
             fail(f"eval: {scheme}: {k1} K1 launches for {n_g} sampled forwards, expected 15 "
-                 f"each; K2 {fused_gn.BWD_LAUNCHES}, K3 {soft_dtw.LAUNCHES}")
+                 f"each; K2 {COUNTS["k2.launches"]}, K3 {COUNTS["k3.launches"]}")
         if not all(np.isfinite(v).all() and v.shape == (TRAIN_B, GREEDY_TOP_OF)
                    for v in res_g.metrics.values()):
             fail(f"eval: {scheme} metrics not finite or not [{TRAIN_B}, {GREEDY_TOP_OF}]")
@@ -1527,8 +1531,9 @@ def finetune_phase(torch, fused_gn, soft_dtw, trainer_mod):
     trainer.val_loader.dataset.n_seqs = TRAIN_B
     before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     t0 = time.perf_counter()
-    steps, vals, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer,
-                                        run=lambda: ft.run(trainer, 1))
+    steps, vals, launches, timing = run_counted(torch, fused_gn, soft_dtw, trainer_mod,
+                                                trainer, run=lambda: ft.run(trainer, 1))
+    step_seconds = timing.seconds("train_step")
     wall = time.perf_counter() - t0
     if len(steps) != FINETUNE_STEPS or len(vals) != 1:
         fail(f"finetune: {len(steps)} steps and {len(vals)} val passes")
@@ -1553,12 +1558,12 @@ def finetune_phase(torch, fused_gn, soft_dtw, trainer_mod):
     missing = [t for t in FINETUNE_IMAGES if not any(n.startswith(f"val_{t}_") for n in written)]
     if missing:
         fail(f"finetune: the val pass wrote no {missing} (files: {written})")
-    warm = statistics.median(trainer.step_seconds[1:])
+    warm = statistics.median(step_seconds[1:])
     print(f"finetune: {WIDEGAP_CONF.name} from ep74, {FINETUNE_STEPS} steps at B={TRAIN_B} "
           f"T={TRAIN_T}, a checkpoint and a val pass in {wall:.2f} s; K1/K2/K3 per step "
           f"{FINETUNE_PER_STEP} (design: the whole backward, only inv_mdl stepped), in the "
           f"val pass {val_pass} (val step, logged prior and posterior passes); synced ms per "
-          f"step {[round(t * 1e3, 2) for t in trainer.step_seconds]}, median of steps 1-"
+          f"step {[round(t * 1e3, 2) for t in step_seconds]}, median of steps 1-"
           f"{FINETUNE_STEPS - 1} {warm * 1e3:.2f}; {moved} inv_mdl tensors moved, every other "
           f"parameter bit-identical to ep74; images {sorted(FINETUNE_IMAGES)}")
     return {"finetune": stepped, "finetune_val": val_pass}
@@ -1689,28 +1694,33 @@ class SharedSigns:
 def run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer, run=None):
     """trainer.run() (or `run()`) with the launch counts reset, recording
     each train step's K1, K2 and K3 launches with its metrics and each val
-    pass's losses. Returns them and the whole run's launches."""
+    pass's losses, in a tracing session whose steps wait for the device.
+    Returns them, the whole run's launches and the session (its
+    'train_step' and 'trainer.data' spans time the steps and the waits for
+    their batches)."""
     steps, vals = [], []
     real_step, real_val = trainer_mod.train_step, trainer.val
 
     def counted_step(*a, **kw):
-        k1, k2, k3 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES
+        k1, k2, k3 = COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"]
         metrics = real_step(*a, **kw)
-        steps.append((fused_gn.LAUNCHES - k1, fused_gn.BWD_LAUNCHES - k2,
-                      soft_dtw.LAUNCHES - k3, metrics))
+        steps.append((COUNTS["k1.launches"] - k1, COUNTS["k2.launches"] - k2,
+                      COUNTS["k3.launches"] - k3, metrics))
         return metrics
 
     trainer_mod.train_step = counted_step
     trainer.val = lambda epoch: vals.append(real_val(epoch)) or vals[-1]
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = fused_gn.BWD_DY_COPIES = 0
-    soft_dtw.LAUNCHES = 0
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k2.dy_copies"] = 0
+    COUNTS["k3.launches"] = 0
     try:
-        (run or trainer.run)()
+        with tracing.session(synchronize=True) as timing:
+            (run or trainer.run)()
     finally:
         trainer_mod.train_step = real_step
         del trainer.val
     torch.cuda.synchronize()
-    return steps, vals, (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"])
+    return steps, vals, launches, timing
 
 
 def check_steps(torch, tag, steps, vals, per_step):
@@ -1755,9 +1765,10 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    steps, _, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
+    steps, _, launches, timing = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
     wall = time.perf_counter() - t0
-    copies = fused_gn.BWD_DY_COPIES
+    step_seconds = timing.seconds("train_step")
+    copies = COUNTS["k2.dy_copies"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if len(steps) != n_steps or trainer.step != n_steps:
@@ -1769,16 +1780,16 @@ def train_phase(torch, fused_gn, soft_dtw, trainer_mod, conf, resume, k3_per_ste
         fail(f"{tag}: parameters with a gradient did not change: {unchanged}")
     static = [n for n, p in trainer.model.named_parameters()
               if torch.equal(p.detach(), before[n])]
-    warm = statistics.median(trainer.step_seconds[3:n_steps])
+    warm = statistics.median(step_seconds[3:n_steps])
     first = {k: float(v) for k, v in steps[0][3].items() if v.dim() == 0}
     last = {k: float(v) for k, v in steps[-1][3].items() if v.dim() == 0}
     print(f"{tag}: {conf.name}, {n_steps} steps of B={TRAIN_B} T={TRAIN_T} in "
           f"{wall:.2f} s (checkpoint included); K1/K2/K3 launches per step "
           f"{per_step}, total {launches}")
-    print(f"{tag}: step 0 {trainer.step_seconds[0] * 1e3:.2f} ms; warm ms per step "
+    print(f"{tag}: step 0 {step_seconds[0] * 1e3:.2f} ms; warm ms per step "
           f"(median of steps 3-{n_steps - 1}) {warm * 1e3:.2f}; training frames/s "
           f"{TRAIN_B * TRAIN_T / warm:.1f}; peak device memory {peak_gib:.3f} GiB; "
-          f"BWD_DY_COPIES {copies}")
+          f"k2.dy_copies {copies}")
     print(f"{tag}: parameters that did not move (no gradient): {static}")
     print(f"{tag}: first step " + json.dumps({k: float(f"{v:.6g}") for k, v in first.items()}))
     print(f"{tag}: last step " + json.dumps({k: float(f"{v:.6g}") for k, v in last.items()}))
@@ -1910,7 +1921,8 @@ class _Recorder:
         def run_model(sim, inputs):
             t0 = time.perf_counter()
             out = orig(sim, inputs)  # ends with the copies to the host
-            rec.sim.append((inputs.I_0.shape[0], time.perf_counter() - t0, sim.host_bytes))
+            rec.sim.append((inputs.I_0.shape[0], time.perf_counter() - t0,
+                            sum(v.nbytes for v in out.values())))
             if rec.first_sim is None:  # z, or a VMPC's actions and pad mask
                 rec.first_sim = ({k: v.cpu() for k, v in inputs.items()}, out)
             return out
@@ -2065,7 +2077,7 @@ def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
     last = str(CONTROL_TASKS - 1)
     control = _config_copy(CONTROL)
     rec = _Recorder(torch, sim_mod, planner_policy, infra_sim_mod, cost_mod, sampler_mod)
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0  # the control path
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0  # the control path
     t0 = time.perf_counter()
     try:
         ControlManager([str(control), "--start_idx", "0", "--end_idx", last,
@@ -2073,7 +2085,7 @@ def plan_phase(torch, fused_gn, soft_dtw, AttrDict):
     finally:
         rec.restore()
     run_s = time.perf_counter() - t0
-    k1, k2, k3 = fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES
+    k1, k2, k3 = COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"]
     n_sim, n_act = len(rec.sim), len(rec.actions)
     want = K1_PER_SIM_CALL * n_sim + K1_PER_ACTION * n_act
     if k1 != want or k2 or k3:
@@ -2255,8 +2267,9 @@ def h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
         del probe
         lap("render_probe")
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
-    steps, vals, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
+    steps, vals, launches, timing = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
     lap("train")
+    step_seconds = timing.seconds("train_step")
     per_epoch = len(trainer.train_loader)
     if per_epoch < 2 or len(steps) != H5_EPOCHS * per_epoch or len(vals) != H5_EPOCHS:
         fail(f"{tag}: {len(steps)} steps and {len(vals)} val passes, expected "
@@ -2273,7 +2286,8 @@ def h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
     # per epoch: the trainer's wait for each batch against its synced steps
     per = {k: [[round(t * 1e3, 2) for t in v[e * per_epoch:(e + 1) * per_epoch]]
                for e in range(H5_EPOCHS)]
-           for k, v in (("t_data_ms", trainer.data_seconds), ("step_ms", trainer.step_seconds))}
+           for k, v in (("t_data_ms", timing.seconds("trainer.data")),
+                        ("step_ms", step_seconds))}
     sums = {k: [round(sum(e), 1) for e in v] for k, v in per.items()}
     print(f"{tag}: {conf.name} from {H5_FILES} h5 files, {H5_EPOCHS} epochs of {per_epoch} "
           f"steps at B={TRAIN_B} T={TRAIN_T} and a val pass each in {laps['train']:.2f} s; K1/K2 "
@@ -2281,7 +2295,7 @@ def h5_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, 
     print(f"{tag}: per step and epoch (cold, then warm render cache): " + json.dumps(per))
     print(f"{tag}: sums per epoch, t_data {sums['t_data_ms']} ms against steps "
           f"{sums['step_ms']} ms; median of steps 1-{len(steps) - 1} "
-          f"{statistics.median(trainer.step_seconds[1:]) * 1e3:.2f} ms; device busy per step "
+          f"{statistics.median(step_seconds[1:]) * 1e3:.2f} ms; device busy per step "
           f"{fmt(busy)} ms (torch.profiler, a resident batch)")
     if render_s:
         print(f"{tag}: re-render of {TRAIN_B} windows on the host (render + INTER_AREA), "
@@ -2408,7 +2422,7 @@ def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag,
     trainer = trainer_mod.ModelTrainer(args)  # device 'cuda', the default
     before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     t0 = time.perf_counter()
-    steps, vals, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
+    steps, vals, launches, timing = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
     wall = time.perf_counter() - t0
     if len(steps) != len(trainer.train_loader) or len(steps) < 2 or len(vals) != 1:
         fail(f"{tag}: {len(steps)} steps and {len(vals)} val passes")
@@ -2425,14 +2439,15 @@ def baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf, per_step, tag,
           f"B={trainer.conf['batch_size']} T={trainer.train_loader.dataset.max_seq_len} and a "
           f"val pass in {wall:.2f} s (checkpoint included); K1/K2/K3 launches per step "
           f"{per_step}, total {launches}; synced ms per step "
-          f"{[round(t * 1e3, 1) for t in trainer.step_seconds]}; parameters with a gradient "
+          f"{[round(t * 1e3, 1) for t in timing.seconds('train_step')]}; parameters with a "
+          f"gradient "
           f"that did not move: {n_unmoved} of {with_grad}")
     busy = step_busy_ms(torch, trainer, trainer_mod.train_step)
     print(f"{tag}: device busy in a step {fmt(busy)} ms (torch.profiler, a resident batch)")
     print(f"{tag}: last step " + json.dumps(
         {k: float(f"{float(v):.6g}") for k, v in steps[-1][3].items() if v.dim() == 0}))
     print(f"{tag}: val " + json.dumps({k: float(f"{v:.6g}") for k, v in vals[0].items()}))
-    return trainer, [s[3] for s in steps], launches, busy
+    return trainer, [s[3] for s in steps], launches, busy, timing
 
 
 def flip_probe(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
@@ -2451,7 +2466,7 @@ def flip_probe(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader
     print(f"flip_probe: {H5_FILES} nav_9rooms trajectories in {gen_s:.2f} s")
     rows = []
     for m in range(models):
-        trainer, _, _, _ = baseline_train(torch, fused_gn, soft_dtw, trainer_mod,
+        trainer, _, _, _, _ = baseline_train(torch, fused_gn, soft_dtw, trainer_mod,
                                           vmpc_conf.parent, VMPC_PER_STEP, "vmpc")
         trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
 
@@ -2534,7 +2549,7 @@ def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None, perf_a
 
     for cls, orig in acts:
         cls.act = timed_act(orig)
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
     t0 = time.perf_counter()
     try:
         ControlManager([str(conf), "--start_idx", "0", "--end_idx", str(BASELINE_TASKS - 1),
@@ -2544,7 +2559,7 @@ def baseline_control(torch, fused_gn, soft_dtw, tag, conf, profiled=None, perf_a
         for cls, orig in acts:
             cls.act = orig
     run_s = time.perf_counter() - t0
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"])
     log = conf.parent / "log"
     perf = compute_control_perf(load_pickle(log / f"scores_0to{BASELINE_TASKS - 1}.pkl"),
                                 **(perf_args or {}))
@@ -2606,7 +2621,7 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
     # 2. VMPC: trained 4 steps, then CEM over action sequences
     vmpc_conf = _write("experiments/prediction/9room/vmpc/conf.py",
                        (SEQ_CONF / "conf.py").read_text() + VMPC_OVERRIDES)
-    trainer, steps, launches["vmpc_train"], _ = baseline_train(
+    trainer, steps, launches["vmpc_train"], _, _ = baseline_train(
         torch, fused_gn, soft_dtw, trainer_mod, vmpc_conf.parent, VMPC_PER_STEP, "vmpc")
     if any(float(m["kl"]) != 0.0 for m in steps):
         fail(f"vmpc: non-zero KL {[float(m['kl']) for m in steps]} (nz_vae = 0)")
@@ -2638,7 +2653,7 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
 
     # 3. goal-conditioned BC (reactive): trained 4 steps, then one task
     bc_conf = _write("experiments/prediction/9room/bc/conf.py", BC_CONF)
-    trainer, _, launches["bc_train"], _ = baseline_train(
+    trainer, _, launches["bc_train"], _, _ = baseline_train(
         torch, fused_gn, soft_dtw, trainer_mod, bc_conf.parent,
         (BC_NORMS_PER_STEP, BC_NORMS_PER_STEP, 0), "bc")
     trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
@@ -2689,14 +2704,14 @@ def baselines_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataL
                         z=torch.from_numpy(z[:b]).to(device))
 
     times = []
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
     with torch.inference_mode():
         for _ in range(2):  # cold, then warm
             t0 = time.perf_counter()
             out = model(inputs(TRAIN_B, "cuda"), phase="test", mode="prior")
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-    launches["conv_lstm"] = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    launches["conv_lstm"] = (COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"])
     if launches["conv_lstm"] != (2 * K1_PER_SIM_CALL, 0, 0):
         fail(f"conv_lstm: K1/K2/K3 launches {launches['conv_lstm']} in 2 forwards")
     if out.dense_rec.images.shape != (TRAIN_B, TRAIN_T, 32, 32, 3) or not all(
@@ -2793,7 +2808,8 @@ def maze_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader
     shutil.rmtree(exp, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     per_step = (NORMS_PER_STEP, NORMS_PER_STEP, 0)
-    trainer, _, launches, busy = baseline_train(torch, fused_gn, soft_dtw, trainer_mod, conf,
+    trainer, _, launches, busy, timing = baseline_train(torch, fused_gn, soft_dtw, trainer_mod,
+                                                        conf,
                                                 per_step, tag, data_dir=data_dir)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     dataset = trainer.train_loader.dataset
@@ -2806,12 +2822,14 @@ def maze_train(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader
     if not ckpt.is_file():
         fail(f"{tag}: the trainer wrote no {ckpt}")
     trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    warm = statistics.median(trainer.step_seconds[1:])
+    step_seconds = timing.seconds("train_step")
+    warm = statistics.median(step_seconds[1:])
     t = dataset.max_seq_len
     idle = f"{1 - busy / (warm * 1e3):.3f}" if busy else "n/m"
     print(f"{tag}: {sum(v.numel() for v in trained.values())} parameters; K1/K2/K3 launches "
           f"in the val pass {got_val}; t_data ms "
-          f"{[round(s * 1e3, 1) for s in trainer.data_seconds]}; warm ms per step (median "
+          f"{[round(s * 1e3, 1) for s in timing.seconds('trainer.data')]}; warm ms per step "
+          f"(median "
           f"of steps 1-{n_steps - 1}) {warm * 1e3:.2f}; training frames/s "
           f"{TRAIN_B * t / warm:.1f}; device busy {fmt(busy)} ms a step, idle share {idle}; "
           f"peak device memory {peak_gib:.3f} GiB")
@@ -2968,12 +2986,12 @@ def long_sweep(torch, fused_gn, soft_dtw, trainer_mod, conf, tag):
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     vals, real_val = [], trainer.val
     trainer.val = lambda epoch: vals.append(real_val(epoch)) or vals[-1]
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
     t0 = time.perf_counter()
     lines = _run_captured(trainer)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"])
     for name, t, lv in LONG_SWEEP:
         if f"[dataset sweep] {name} (T={t}, L={lv})" not in lines:
             fail(f"{tag}: no [dataset sweep] line for {name} at T={t}, L={lv}")
@@ -3013,13 +3031,13 @@ def long_eval(torch, fused_gn, soft_dtw, trainer_mod, conf, tag):
              f"examples, expected one of {LONG_EVAL_B}")
     summaries, real = [], trainer.run_metric_eval
     trainer.run_metric_eval = lambda: summaries.append(real()) or summaries[-1]
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _run_captured(trainer)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"])
     n_samples = 100 + Evaluator.N_PLOTTED_ELEMENTS
     if launches != (15 * n_samples, 0, 0):
         fail(f"{tag}: K1/K2/K3 launches {launches} for {n_samples} sampled forwards, "
@@ -3214,7 +3232,7 @@ def rank_trainer(torch, fused_gn, soft_dtw, workdir):
     loader.dataset.n_seqs = DIST_STEPS * TRAIN_B // loader.n_repeat
     marks["trainer_built"] = time.time()
     torch.cuda.reset_peak_memory_stats()
-    steps, _, launches = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
+    steps, _, launches, timing = run_counted(torch, fused_gn, soft_dtw, trainer_mod, trainer)
     marks["trained"] = time.time()
     lo, hi = _checksums(torch, trainer.model)
     _rank_json(workdir, "trainer", trainer.dist.rank, dict(
@@ -3224,7 +3242,7 @@ def rank_trainer(torch, fused_gn, soft_dtw, workdir):
         totals=[float(s[3]["total"]) for s in steps],
         finite=[bool(s[3]["grads_finite"]) and all(bool(torch.isfinite(v).all())
                                                      for v in s[3].values()) for s in steps],
-        step_seconds=trainer.step_seconds, checksum=[lo, hi], marks=marks,
+        step_seconds=timing.seconds("train_step"), checksum=[lo, hi], marks=marks,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
     dist.destroy_process_group()
 
@@ -3276,12 +3294,12 @@ def rank_steps(torch, fused_gn, soft_dtw, workdir):
     batch = AttrDict({k: v[rows].to(dev) for k, v in spec["batch"].items()})
     noise = SharedNoise(torch, distributions, spec["draws"], (rank, world))
     signs = SharedSigns(torch, spec["masks"], (rank, world))
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
     met = signs.run(lambda: noise.run(lambda: train_step(
         model, opt, batch, 0, torch.Generator(dev), mesh)), record=False)
     torch.cuda.synchronize()
     out["dp"] = dict(rows=[rows.start, rows.stop],
-                     launches=[fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES],
+                     launches=[COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"]],
                      metrics={k: float(v) for k, v in met.items() if v.dim() == 0},
                      checksum=list(_checksums(torch, model)))
     if rank == 0:
@@ -3313,12 +3331,12 @@ def rank_steps(torch, fused_gn, soft_dtw, workdir):
                 for p in model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    fused_gn.LAUNCHES = fused_gn.BWD_LAUNCHES = soft_dtw.LAUNCHES = 0
+    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
     t0 = time.perf_counter()
     met = train_step(model, opt, batch, 0, gen, fmesh)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = [fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES]
+    launches = [COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"]]
     t0 = time.perf_counter()
     met2 = train_step(model, opt, batch, 1, gen, fmesh)  # warm
     torch.cuda.synchronize()
@@ -3458,12 +3476,12 @@ def dist_phase(torch, fused_gn, soft_dtw, ep74, load_model, AttrDict, distributi
     times = {}
     for name, sim in (("unsplit", unsplit), ("split", split), ("unsplit", unsplit),
                       ("split", split)):
-        fused_gn.LAUNCHES = 0
+        COUNTS["k1.launches"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sim.run_model(inputs)
         times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        times[name + "_k1"] = fused_gn.LAUNCHES
+        times[name + "_k1"] = COUNTS["k1.launches"]
         if name == "unsplit":
             want = res
         else:
@@ -3611,10 +3629,10 @@ def main():
                           "k2_sums": k2_sums}))
         print(gpu_name_and_power_limit())
         return
-    soft_dtw.LAUNCHES = 0  # slice_phase resets K1's and K2's counts
+    COUNTS["k3.launches"] = 0  # slice_phase resets K1's and K2's counts
     serve_launches, plan_s, model, cpu_model = timed_phase(
         "serve", slice_phase, torch, fused_gn, load_model, AttrDict)
-    if fused_gn.BWD_LAUNCHES or soft_dtw.LAUNCHES:
+    if COUNTS["k2.launches"] or COUNTS["k3.launches"]:
         fail("K2 or K3 launched on the serving path")
     trainer, (train_k1, train_k2, _) = timed_phase(
         "train", train_phase, torch, fused_gn, soft_dtw, trainer_mod, CONF, WEIGHTS,
@@ -3643,11 +3661,11 @@ def main():
                 distributions, DataLoader, adaptive.train_loader.dataset, "train_adaptive")
     del adaptive
 
-    soft_dtw.LAUNCHES = 0
+    COUNTS["k3.launches"] = 0
     serve16_k1, (train16_k1, train16_k2) = timed_phase(
         "bf16", bf16_phase, torch, fused_gn, load_model, AttrDict, train_step_mod, model,
         trainer.model, trainer.train_loader.dataset, DataLoader)
-    if soft_dtw.LAUNCHES:
+    if COUNTS["k3.launches"]:
         fail("K3 launched on a bf16 path")
     timed_phase("train_bf16_vs_cpu", train_vs_cpu, torch,
                 lambda d: load_model(CONF, weights=WEIGHTS, device=d,

@@ -37,13 +37,14 @@ from video_gcp_torch.core.attrdict import AttrDict  # noqa: E402
 from video_gcp_torch.data.datasets import RandomVideoDataset  # noqa: E402
 from video_gcp_torch.data.loader import DataLoader  # noqa: E402
 from video_gcp_torch.load import load_model  # noqa: E402
-from video_gcp_torch.ops import fused_gn, soft_dtw  # noqa: E402
 from video_gcp_torch.parallel.train_step import make_optimizer, train_step  # noqa: E402
+from video_gcp_torch.tracing import COUNTS  # noqa: E402
 from video_gcp_torch.training.config import build_hparams, load_config  # noqa: E402
 
 CONF = ROOT / "experiments/prediction/9room/gcp_tree"
 ADAPTIVE_CONF = ROOT / "experiments/prediction/9room/gcp_adaptive"
 REPS, TOP = 5, 25
+KERNEL_COUNTERS = ("k1.launches", "k2.launches", "k3.launches")
 
 
 def main():
@@ -95,7 +96,7 @@ def main():
         for _ in range(3):
             call()
         torch.cuda.synchronize()
-        launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES, soft_dtw.LAUNCHES)
+        launches = [COUNTS[k] for k in KERNEL_COUNTERS]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(REPS):
@@ -116,12 +117,12 @@ def main():
         t = e.self_device_time_total / REPS
         print(f"{t / 1e3:9.3f} | {t / busy_us:.3f} | {e.count / REPS:6.1f} | {e.key[:110]}")
     what = "step" if args.train else "call"
-    for name, tag, count, before in (("K1", "gn_lrelu_fwd", fused_gn.LAUNCHES, launches[0]),
-                                     ("K2", "gn_lrelu_bwd", fused_gn.BWD_LAUNCHES, launches[1]),
-                                     ("K3", "soft_dtw_kernel", soft_dtw.LAUNCHES, launches[2])):
+    for name, tag, counter, before in zip(("K1", "K2", "K3"),
+                                          ("gn_lrelu_fwd", "gn_lrelu_bwd", "soft_dtw_kernel"),
+                                          KERNEL_COUNTERS, launches):
         t = sum(e.self_device_time_total for e in kernels if tag in e.key) / REPS
         print(f"{name} {tag}: {t / 1e3:.3f} ms/{what}, share {t / busy_us:.3f}, "
-              f"launches per {what} {(count - before) / REPS:.1f}")
+              f"launches per {what} {(COUNTS[counter] - before) / REPS:.1f}")
 
 
 if __name__ == "__main__":

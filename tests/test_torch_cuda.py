@@ -56,6 +56,7 @@ from video_gcp_torch.models.nets import ConvEncoder
 from video_gcp_torch.ops import dtw, fused_gn
 from video_gcp_torch.ops import soft_dtw as sdtw
 from video_gcp_torch.parallel.train_step import make_optimizer, train_step
+from video_gcp_torch.tracing import COUNTS
 
 pytestmark = pytest.mark.cuda
 
@@ -79,10 +80,10 @@ def test_kernel_matches_twin(card, dtype):
         x = (torch.randn(shape, generator=gen, device=card) * 3 + 1).to(dtype)
         sc = torch.randn(shape[-1], generator=gen, device=card) * 0.5 + 1
         bi = torch.randn(shape[-1], generator=gen, device=card) * 0.1
-        launches = fused_gn.LAUNCHES
+        launches = COUNTS["k1.launches"]
         got = fused_gn.fused_group_norm_lrelu(x, sc, bi, groups)
         torch.cuda.synchronize()
-        assert fused_gn.LAUNCHES == launches + 1
+        assert COUNTS["k1.launches"] == launches + 1
         assert got.dtype == dtype and got.shape == x.shape
         want = fused_gn.gn_lrelu_reference(x, sc, bi, groups).float()
         err = (got.float() - want).abs()
@@ -144,10 +145,10 @@ def test_small_tree_on_card_matches_cpu(card):
                       z=torch.from_numpy(rng.randn(2, 7, 32).astype(np.float32)))
     with torch.inference_mode():
         want = cpu(inputs, phase="plan")
-        launches = fused_gn.LAUNCHES
+        launches = COUNTS["k1.launches"]
         got = gpu(AttrDict({k: v.to(card) for k, v in inputs.items()}), phase="plan")
         torch.cuda.synchronize()
-    assert fused_gn.LAUNCHES - launches == 3 * 4  # 2 encoder passes + decoder, 4 levels
+    assert COUNTS["k1.launches"] - launches == 3 * 4  # 2 encoder passes + decoder, 4 levels
     for k in ("timeline_images", "timeline_latents", "actions", "regressed_state"):
         assert (got[k].cpu() - want[k]).abs().max().item() < 1e-4, k
 
@@ -166,10 +167,10 @@ def test_bwd_kernel_matches_twin(card, dtype):
         sc = torch.randn(shape[-1], generator=gen, device=card) * 0.5 + 1
         bi = torch.randn(shape[-1], generator=gen, device=card) * 0.1
         x = fused_gn.clear_of_kink(x, sc, bi, groups)  # no sign test at a tie
-        launches = fused_gn.BWD_LAUNCHES
+        launches = COUNTS["k2.launches"]
         got = fused_gn.gn_lrelu_bwd(x, dy, sc, bi, groups)
         torch.cuda.synchronize()
-        assert fused_gn.BWD_LAUNCHES == launches + 1
+        assert COUNTS["k2.launches"] == launches + 1
         want = fused_gn.gn_lrelu_bwd_reference(x, dy, sc, bi, groups)
         assert got[0].dtype == dtype and got[1].dtype == torch.float32
         for g, w, tol in zip(got, want, (2e-5 if dtype == torch.float32 else 3e-2,
@@ -210,11 +211,11 @@ def test_kernels_at_every_plan_branch(card, shape, groups, dtype, offset):
     dy = _at_offset(torch.randn(shape, generator=gen, device=card).to(dtype), offset)
     plan = fused_gn._plan(x, groups, True, dy)
     assert (plan.vec == 1) == (offset == 1 or c == 6)
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"])
     y = fused_gn.gn_lrelu_fwd(x, sc, bi, groups)
     got = fused_gn.gn_lrelu_bwd(x, dy, sc, bi, groups)
     torch.cuda.synchronize()
-    assert (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    assert (COUNTS["k1.launches"], COUNTS["k2.launches"]) == (launches[0] + 1, launches[1] + 1)
     want = fused_gn.gn_lrelu_reference(x, sc, bi, groups).float()
     err = (y.float() - want).abs()
     if dtype == torch.float32:
@@ -248,10 +249,10 @@ def test_bwd_param_grads_are_bitwise_repeatable(card, shape):
 def test_bwd_copies_a_dy_that_is_not_nhwc(card):
     x = torch.randn(2, 4, 4, 16, device=card)
     dy = torch.randn(2, 16, 4, 4, device=card).permute(0, 2, 3, 1)  # NCHW memory
-    copies = fused_gn.BWD_DY_COPIES
+    copies = COUNTS["k2.dy_copies"]
     got = fused_gn.gn_lrelu_bwd(x, dy, torch.ones(16, device=card),
                                 torch.zeros(16, device=card), 8)
-    assert fused_gn.BWD_DY_COPIES == copies + 1
+    assert COUNTS["k2.dy_copies"] == copies + 1
     want = fused_gn.gn_lrelu_bwd_reference(x, dy, torch.ones(16, device=card),
                                            torch.zeros(16, device=card), 8)
     assert (got[0] - want[0]).abs().max().item() < 2e-5
@@ -262,11 +263,11 @@ def test_conv_weights_before_a_norm_get_gradients(card):
     hp.overwrite(dict(img_sz=16, ngf=8, nz_enc=32))
     enc = ConvEncoder(dict(hp)).to(card, memory_format=torch.channels_last)
     x = torch.randn(4, 16, 16, 3, device=card)
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"])
     e, _ = enc(x)
     e.square().sum().backward()
     torch.cuda.synchronize()
-    assert fused_gn.LAUNCHES - launches[0] == 4 == fused_gn.BWD_LAUNCHES - launches[1]
+    assert COUNTS["k1.launches"] - launches[0] == 4 == COUNTS["k2.launches"] - launches[1]
     for conv in enc.conv:
         assert conv.weight.grad is not None and conv.weight.grad.abs().sum() > 0
 
@@ -308,11 +309,11 @@ def test_small_train_step_on_card_matches_cpu(card, monkeypatch):
     gpu.load_state_dict(cpu.state_dict())
     gpu.to(card, memory_format=torch.channels_last)
     want = run(cpu, batch, "cpu")
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"])
     got = run(gpu, batch, card)
     torch.cuda.synchronize()
     # 3 encoder calls + the decoder, 4 norm sites each
-    assert fused_gn.LAUNCHES - launches[0] == 16 == fused_gn.BWD_LAUNCHES - launches[1]
+    assert COUNTS["k1.launches"] - launches[0] == 16 == COUNTS["k2.launches"] - launches[1]
     for k, v in want.items():
         if v.dim() == 0 and v.dtype != torch.bool:
             assert abs(got[k].item() - v.item()) <= 1e-5 * max(1.0, abs(v.item())), k
@@ -353,10 +354,10 @@ def _dtw_check(got, want, ends):
     (1, 2457, 2457)])  # 12 columns a lane, seven warps a chain
 def test_soft_dtw_kernel_matches_row_twin(card, b, r, c):
     cost, ends = _dtw_inputs(card, b, r, c)
-    launches = sdtw.LAUNCHES
+    launches = COUNTS["k3.launches"]
     got = sdtw.k3(cost, ends, return_dp=True)
     torch.cuda.synchronize()
-    assert sdtw.LAUNCHES == launches + 1
+    assert COUNTS["k3.launches"] == launches + 1
     _dtw_check(got, sdtw.soft_dtw_rows_reference(cost, ends, return_dp=True), ends)
 
 
@@ -370,10 +371,10 @@ def test_soft_dtw_kernel_at_an_unaligned_address(card):
 
 def test_soft_dtw_on_a_cuda_tensor_is_one_k3_launch(card):
     cost, ends = _dtw_inputs(card, 4, 15, 10, seed=1)
-    launches = sdtw.LAUNCHES
+    launches = COUNTS["k3.launches"]
     w = sdtw.soft_dtw(cost.requires_grad_(), ends)
     torch.cuda.synchronize()
-    assert sdtw.LAUNCHES == launches + 1 and w.is_cuda and w.grad_fn is None
+    assert COUNTS["k3.launches"] == launches + 1 and w.is_cuda and w.grad_fn is None
     assert torch.equal(w, sdtw.soft_dtw(cost, ends))  # the same on every run
     for shape in ((16, 127, 100), (2, 511, 500)):
         cost, ends = _dtw_inputs(card, *shape, seed=3)
@@ -424,10 +425,10 @@ def test_small_adaptive_train_step_on_card_matches_cpu(card, monkeypatch):
     gpu.load_state_dict(cpu.state_dict())
     gpu.to(card, memory_format=torch.channels_last)
     want = run(cpu, batch, "cpu")
-    launches = sdtw.LAUNCHES
+    launches = COUNTS["k3.launches"]
     got = run(gpu, batch, card)
     torch.cuda.synchronize()
-    assert sdtw.LAUNCHES - launches == 1
+    assert COUNTS["k3.launches"] - launches == 1
     for k, v in want.items():
         if v.dim() == 0 and v.dtype != torch.bool:
             assert abs(got[k].item() - v.item()) <= 1e-5 * max(1.0, abs(v.item())), k
@@ -472,14 +473,14 @@ def test_small_tree_in_bf16_on_card(card):
     for m in gpu.modules():
         if isinstance(m, nets.GroupNorm):
             m.register_forward_pre_hook(lambda mod, args: norm_inputs.append(args[0].dtype))
-    launches = fused_gn.LAUNCHES
+    launches = COUNTS["k1.launches"]
     with torch.inference_mode():
         got = gpu(AttrDict({k: v.to(card) for k, v in inputs.items()}), phase="test")
         want = cpu(inputs, phase="test")
     torch.cuda.synchronize()
     # 16x16 images: 4 conv levels, so 4 norms in each of the two encoder
     # calls (start, goal) and in the decoder
-    assert fused_gn.LAUNCHES - launches == len(norm_inputs) == 12
+    assert COUNTS["k1.launches"] - launches == len(norm_inputs) == 12
     assert set(norm_inputs) == {torch.bfloat16}
     for k in ("images", "e_g_prime"):
         assert got.tree[k].dtype == torch.float32
@@ -523,9 +524,9 @@ def test_simulator_on_card_matches_cpu(card):
     state = rng.randint(0, 256, (1, 16, 16, 3)).astype(np.uint8)
     goal = rng.rand(1, 16, 16, 3).astype(np.float32)
     z = rng.randn(10, 15, 8).astype(np.float32)
-    launches = fused_gn.LAUNCHES
+    launches = COUNTS["k1.launches"]
     got = GCPImageSimulator(gpu, append_latent=True).rollout(state, goal, z, 15)
-    assert fused_gn.LAUNCHES - launches == 12
+    assert COUNTS["k1.launches"] - launches == 12
     want = GCPImageSimulator(cpu, append_latent=True).rollout(state, goal, z, 15)
     for i in range(len(z)):
         g, w = got.predictions[i], want.predictions[i]
@@ -555,9 +556,9 @@ def test_infer_action_on_card_matches_cpu(card):
     rng = np.random.RandomState(0)
     img = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
     target = rng.randn(128).astype(np.float32)
-    launches = fused_gn.LAUNCHES
+    launches = COUNTS["k1.launches"]
     got = on_card._infer_action(img, target)
-    assert fused_gn.LAUNCHES - launches == 5
+    assert COUNTS["k1.launches"] - launches == 5
     assert np.abs(got - on_cpu._infer_action(img, target)).max() < 1e-4
 
 
@@ -610,11 +611,11 @@ def test_trainer_on_an_h5_dataset_on_card(card, model, tmp_path, monkeypatch):
     monkeypatch.setenv("GCP_EXP_DIR", str(tmp_path / "exp"))
     trainer = ModelTrainer(parse_args(["--path", str(conf.parent), "--num_epochs", "1",
                                        "--skip_first_val", "1"]))
-    launches = (fused_gn.LAUNCHES, fused_gn.BWD_LAUNCHES)
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.run()
         torch.cuda.synchronize()
-    counted = (fused_gn.LAUNCHES - launches[0], fused_gn.BWD_LAUNCHES - launches[1])
+    counted = (COUNTS["k1.launches"] - launches[0], COUNTS["k2.launches"] - launches[1])
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     seen = tuple(sum(e.count for e in kernels if name in e.key)

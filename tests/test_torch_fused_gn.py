@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from video_gcp_torch.ops import fused_gn as t_gn
+from video_gcp_torch.tracing import COUNTS
 from video_gcp_torch.models.nets import GroupNorm
 from video_gcp_tpu.ops.fused_gn import _gn_lrelu_bwd_pallas as j_bwd_pallas
 from video_gcp_tpu.ops.fused_gn import fused_group_norm_lrelu as j_fused
@@ -68,9 +69,9 @@ def _port(x, sc, bi, groups, dtype):
 @pytest.mark.parametrize("shape,groups", SHAPES)
 def test_twin_matches_jax_kernel(shape, groups, dtype):
     x, sc, bi = _inputs(shape, dtype)
-    launches = t_gn.LAUNCHES
+    launches = COUNTS["k1.launches"]
     got = _port(x, sc, bi, groups, dtype)
-    assert t_gn.LAUNCHES == launches  # CPU tensors never reach the kernel
+    assert COUNTS["k1.launches"] == launches  # CPU tensors never reach the kernel
     xj = jnp.asarray(x).astype(getattr(jnp, dtype))
     want = j_fused(xj, jnp.asarray(sc), jnp.asarray(bi), groups, interpret=True)
     d = np.max(np.abs(got - np.asarray(want.astype(jnp.float32))))
@@ -144,10 +145,10 @@ def _rel(got, want):
 def test_bwd_twin_matches_jax_kernel(shape, dtype):
     x, dy, sc, bi = _bwd_inputs(shape, dtype)
     tdt = getattr(torch, dtype)
-    before = (t_gn.LAUNCHES, t_gn.BWD_LAUNCHES)
+    before = (COUNTS["k1.launches"], COUNTS["k2.launches"])
     got = t_gn.gn_lrelu_bwd(torch.from_numpy(x).to(tdt), torch.from_numpy(dy).to(tdt),
                             torch.from_numpy(sc), torch.from_numpy(bi), 8)
-    assert (t_gn.LAUNCHES, t_gn.BWD_LAUNCHES) == before  # CPU: the twin
+    assert (COUNTS["k1.launches"], COUNTS["k2.launches"]) == before  # CPU: the twin
     assert got[0].dtype == tdt and got[1].dtype == got[2].dtype == torch.float32
     jdt = getattr(jnp, dtype)
     want = j_bwd_pallas(jnp.asarray(x).astype(jdt), jnp.asarray(dy).astype(jdt),
@@ -177,10 +178,10 @@ def test_autograd_function_gradcheck(shape, groups):
     x = torch.from_numpy(rng.randn(*shape) * 2 + 0.5).requires_grad_()
     sc = torch.from_numpy(rng.randn(shape[-1]) * 0.5 + 1).requires_grad_()
     bi = torch.from_numpy(rng.randn(shape[-1]) * 0.1).requires_grad_()
-    before = (t_gn.LAUNCHES, t_gn.BWD_LAUNCHES)
+    before = (COUNTS["k1.launches"], COUNTS["k2.launches"])
     assert torch.autograd.gradcheck(
         lambda a, b, c: t_gn.fused_group_norm_lrelu(a, b, c, groups), (x, sc, bi))
-    assert (t_gn.LAUNCHES, t_gn.BWD_LAUNCHES) == before
+    assert (COUNTS["k1.launches"], COUNTS["k2.launches"]) == before
 
 
 @pytest.mark.parametrize("grad_of", ["input", "params", "none"])

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.models.hyperparameters import default_hparams as p_default_hparams
 from video_gcp_torch.models.tree import TreeModel as PTree
@@ -163,10 +164,11 @@ def test_simulator_matches_jax(which, request):
     z = rng.randn(4 if which == "small" else 2, n_nodes, nz).astype(np.float32)
     jout = JSim(jmodel, jparams, append_latent=True).rollout(state, goal, z, t)
     psim = PSim(pmodel, append_latent=True)
-    pout = psim.rollout(state, goal, z, t)
+    with tracing.session() as traced:
+        pout = psim.rollout(state, goal, z, t)
     assert [p.shape[0] for p in pout.predictions] == [t] * len(z)  # end_ind kept
     _compare_rollouts(pout, jout, nz_enc)
-    assert psim.host_bytes > 0
+    assert traced.counts["to_host.bytes.sim.outputs"] > 0
     s = np.repeat(state.astype(np.float32) / 127.5 - 1, len(z), 0)
     g = np.repeat(goal * 2 - 1, len(z), 0)
     assert _seq_len_logits(pmodel, jmodel, jparams, s, g, z) < TOLS["seq_len_logits"]

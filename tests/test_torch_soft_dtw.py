@@ -30,6 +30,7 @@ import torch
 
 from video_gcp_torch.ops import soft_dtw as t_sd
 from video_gcp_torch.ops.cdist import batch_cdist, cdist
+from video_gcp_torch.tracing import COUNTS
 from video_gcp_tpu.ops.cdist import batch_cdist as j_batch_cdist
 from video_gcp_tpu.ops.pallas_dtw import soft_dtw_pallas
 from video_gcp_tpu.ops.soft_dtw import soft_dtw as j_soft_dtw
@@ -262,10 +263,10 @@ def test_no_gradient_through_the_dp():
 
 
 def test_one_call_is_one_twin_run_on_the_cpu():
-    """On a CPU tensor no kernel launches: LAUNCHES counts card launches."""
-    before = t_sd.LAUNCHES
+    """On a CPU tensor no kernel launches: "k3.launches" counts card launches."""
+    before = COUNTS["k3.launches"]
     _port(*_cost(7, (2, 9, 6), [5, 4]))
-    assert t_sd.LAUNCHES == before
+    assert COUNTS["k3.launches"] == before
 
 
 @pytest.mark.parametrize("reduction", ["sum", "mean"])

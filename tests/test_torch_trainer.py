@@ -65,7 +65,7 @@ def _run(args, exp_dir):
 
 def test_trainer_trains_checkpoints_and_resumes(tmp_path):
     out = _run(["-m", "video_gcp_torch.training.train", *FLAGS, "--num_epochs", "1",
-                "--skip_first_val", "1"], tmp_path)
+                "--skip_first_val", "1", "--verbose_timing", "1"], tmp_path)
     exp = tmp_path / "prediction/toy_random/gcp_tree"
     assert (exp / "weights/weights_ep0/state.pt").is_file()
     assert not (exp / "weights/weights_ep1").exists()
@@ -74,6 +74,7 @@ def test_trainer_trains_checkpoints_and_resumes(tmp_path):
     assert len(totals) == 7 and all(isinstance(v, float) and np.isfinite(v) for v in totals)
     assert all(e["value"] == 1.0 for e in events if e["tag"] == "train_grads_finite")
     assert "[val]" not in out  # skipped after epoch 0
+    assert "epoch 0: median step " in out  # the 'train_step' and 'trainer.data' spans
 
     out = _run(["-c", _RESUME, *FLAGS, "--num_epochs", "2", "--resume", "latest"],
                tmp_path)

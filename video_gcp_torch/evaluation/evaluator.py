@@ -33,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.metrics import mse, psnr, ssim, to_float_images
 from video_gcp_torch.evaluation.eval_binding import dense_sample
@@ -43,6 +44,10 @@ from video_gcp_torch.ops.tree_index import breadthfirst2depthfirst
 
 LOWER_IS_BETTER = ["mse"]  # psnr and ssim: higher is better
 PRIOR_INPUTS = ("I_0", "I_g", "end_ind", "start_ind", "z", "actions")
+
+
+def _host(t: torch.Tensor, site: str) -> np.ndarray:
+    return tracing.to_host(t, site).numpy()
 
 
 class Evaluator:
@@ -69,22 +74,26 @@ class Evaluator:
         the dense prediction [B, T, ...], a tree's nodes in df order or the
         sequential model's rollout)."""
         with torch.inference_mode():
-            out = self.model(AttrDict({k: inputs[k] for k in PRIOR_INPUTS if k in inputs}),
-                             phase="test", mode="prior", generator=generator)
-            gen = dense_sample(out, inputs, self._pruning_scheme, self._max_seq_len)
-            t_idx = torch.arange(inputs.traj_seq.shape[1], device=gen.device)[None, :]
-            valid = ((t_idx >= 1) & (t_idx <= inputs.end_ind[:, None] - 1)
-                     & (inputs.pad_mask > 0))
-            denom = torch.clamp(valid.sum(1), min=1)
-            if self._use_images:
-                m = AttrDict({name: (fn(gen, inputs.traj_seq) * valid).sum(1) / denom
-                              for name, fn in (("mse", mse), ("psnr", psnr), ("ssim", ssim))})
-            else:  # the image metrics would reduce the batch axis of [B, T, D]
-                err = torch.mean((gen - inputs.traj_seq) ** 2, dim=-1)
-                m = AttrDict(mse=(err * valid).sum(1) / denom)
+            with tracing.span("eval.sample"):
+                out = self.model(AttrDict({k: inputs[k] for k in PRIOR_INPUTS if k in inputs}),
+                                 phase="test", mode="prior", generator=generator)
+                gen = dense_sample(out, inputs, self._pruning_scheme, self._max_seq_len)
+            with tracing.span("eval.metrics"):
+                t_idx = torch.arange(inputs.traj_seq.shape[1], device=gen.device)[None, :]
+                valid = ((t_idx >= 1) & (t_idx <= inputs.end_ind[:, None] - 1)
+                         & (inputs.pad_mask > 0))
+                denom = torch.clamp(valid.sum(1), min=1)
+                if self._use_images:
+                    m = AttrDict({name: (fn(gen, inputs.traj_seq) * valid).sum(1) / denom
+                                  for name, fn in (("mse", mse), ("psnr", psnr),
+                                                   ("ssim", ssim))})
+                else:  # the image metrics would reduce the batch axis of [B, T, D]
+                    err = torch.mean((gen - inputs.traj_seq) ** 2, dim=-1)
+                    m = AttrDict(mse=(err * valid).sum(1) / denom)
             full = breadthfirst2depthfirst(out.tree.images) if "tree" in out else gen
             return m, gen, full
 
+    @tracing.spanned("eval.call")
     def eval(self, inputs, generator: torch.Generator) -> AttrDict:
         """The protocol on one batch; returns (and accumulates for the dumps)
         every sample's metrics [B, top_of], the best sample per sequence and
@@ -101,20 +110,27 @@ class Evaluator:
             if best_val is None:
                 best_val, best_gen, best_full = crit, gen, full
                 continue
-            better = crit < best_val if lower else crit > best_val
-            best_gen = torch.where(better.reshape((-1,) + (1,) * (gen.dim() - 1)),
-                                   gen, best_gen)
-            best_full = torch.where(better.reshape((-1,) + (1,) * (full.dim() - 1)),
-                                    full, best_full)
-            best_val = torch.where(better, crit, best_val)
-        metrics = AttrDict({k: torch.stack([m[k] for m in per_sample], 1).cpu().numpy()
-                            for k in per_sample[0]})
-        rand_seqs = [self._eval_sample(inputs, generator)[1].cpu().numpy()
-                     for _ in range(min(self.N_PLOTTED_ELEMENTS, self._top_of))]
-        result = AttrDict(metrics=metrics, best_gen=best_gen.cpu().numpy(),
-                          best_full=best_full.cpu().numpy(),
-                          gt_seq=inputs.traj_seq.cpu().numpy(),
-                          end_ind=inputs.end_ind.cpu().numpy(), rand_seqs=rand_seqs)
+            with tracing.span("eval.metrics"):
+                better = crit < best_val if lower else crit > best_val
+                best_gen = torch.where(better.reshape((-1,) + (1,) * (gen.dim() - 1)),
+                                       gen, best_gen)
+                best_full = torch.where(better.reshape((-1,) + (1,) * (full.dim() - 1)),
+                                        full, best_full)
+                best_val = torch.where(better, crit, best_val)
+        with tracing.span("eval.to_host"):
+            metrics = AttrDict({k: _host(torch.stack([m[k] for m in per_sample], 1),
+                                         "eval.metrics") for k in per_sample[0]})
+        rand_seqs = []
+        for _ in range(min(self.N_PLOTTED_ELEMENTS, self._top_of)):
+            gen = self._eval_sample(inputs, generator)[1]
+            with tracing.span("eval.to_host"):
+                rand_seqs.append(_host(gen, "eval.rand_seqs"))
+        with tracing.span("eval.to_host"):
+            result = AttrDict(metrics=metrics, best_gen=_host(best_gen, "eval.best_gen"),
+                              best_full=_host(best_full, "eval.best_full"),
+                              gt_seq=_host(inputs.traj_seq, "eval.gt_seq"),
+                              end_ind=_host(inputs.end_ind, "eval.end_ind"),
+                              rand_seqs=rand_seqs)
         self._accumulate(result)
         return result
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core import distributions
 from video_gcp_torch.core.metrics import to_float_images
@@ -211,9 +212,12 @@ class BaseGCPModel(nn.Module):
             inputs.start_ind = torch.zeros_like(inputs.end_ind)
         return inputs
 
+    @tracing.spanned("model.encoder")
     def run_encoder(self, inputs: AttrDict) -> AttrDict:
         """Encode the sequence (when given), the start/goal frames and,
-        under action_conditioned_pred, the actions [B, T-1, n_actions]."""
+        under action_conditioned_pred, the actions [B, T-1, n_actions].
+        Its backward is span 'encoder.bwd' (the images need no gradient, so
+        the span ends with the backward pass)."""
         if "traj_seq" in inputs and "enc_traj_seq" not in inputs:
             seq = inputs.traj_seq
             b, t = seq.shape[:2]
@@ -237,6 +241,9 @@ class BaseGCPModel(nn.Module):
         inputs.e_g = sg_encoder(inputs.I_g)[0]
         if self.hp["action_conditioned_pred"] and "actions" in inputs:
             inputs.enc_action_seq = self.action_encoder(inputs.actions)
+        tracing.grad_span("encoder.bwd", [
+            inputs.get(k) for k in ("enc_traj_seq", "inf_enc_seq", "inf_enc_key_seq",
+                                    "e_0", "e_g", "enc_action_seq")] + list(inputs.skips or ()))
         return inputs
 
     def get_end_ind(self, inputs: AttrDict, outputs: AttrDict,
@@ -255,12 +262,15 @@ class BaseGCPModel(nn.Module):
         outputs.end_ind = end_ind
         return end_ind
 
+    @tracing.spanned("model.decoder")
     def decode_seq(self, e_seq: torch.Tensor, skips):
         """Decode [B, N, nz_enc] latents with the node axis folded into the
         batch. Returns (images [B, N, H, W, C], dlm_params or None); under the
         DLM decoder `images` is the mixture mean."""
         b, n = e_seq.shape[:2]
-        out = self.decoder(e_seq.reshape(b * n, -1), skips)
+        folded = e_seq.reshape(b * n, -1)
+        out = self.decoder(folded, skips)
+        tracing.grad_span("decoder.bwd", [out], [folded])
         out = out.reshape((b, n) + out.shape[1:])
         if self.use_dlm:
             return dlm.mean(out, self.hp["input_nc"]), out

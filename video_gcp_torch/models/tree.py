@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.distributions import Gaussian, safe_entropy
 from video_gcp_torch.core.losses import LossTerm, kl_divergence_loss, penalty_loss
@@ -116,6 +117,12 @@ class TreeLevel(nn.Module):
         return sg
 
 
+def _level_tensors(sg: AttrDict) -> list:
+    """The tensors a tree level hands on: where its backward begins."""
+    return [sg.e_g_prime, sg.z, sg.p_z.mu, sg.p_z.log_sigma, sg.q_z.mu, sg.q_z.log_sigma,
+            sg.get("hidden_state"), sg.get("init_hidden_l"), sg.get("init_hidden_r")]
+
+
 class TreeModel(BaseGCPModel):
     """Start/goal encoding, level-by-level tree production, dense decode,
     pruning logits, and the planner's timeline outputs (tree.py:14-124).
@@ -160,9 +167,12 @@ class TreeModel(BaseGCPModel):
         levels = []
         for d in range(self.depth):
             level = self.tree_levels[d if self.hp["untied_layers"] else 0]
-            sg = level(inputs, e_l, e_r, hidden_l, hidden_r, t_l, t_r,
-                       None if z_layers is None else z_layers[d], mode,
-                       generator)
+            with tracing.span("model.tree_level"):
+                sg = level(inputs, e_l, e_r, hidden_l, hidden_r, t_l, t_r,
+                           None if z_layers is None else z_layers[d], mode,
+                           generator)
+            tracing.grad_span("tree_level.bwd", _level_tensors(sg),
+                              [e_l, e_r, hidden_l, hidden_r])
             levels.append(sg)
             if d + 1 < self.depth:
                 t_mid = sg.match_timesteps
@@ -211,22 +221,25 @@ class TreeModel(BaseGCPModel):
         end_ind = self.get_end_ind(inputs, outputs, pred_length,
                                    None if mode == "posterior" else generator)
         self.predict_sequence(inputs, outputs, end_ind, mode, generator)
-        # existence (balanced) or distance (adaptive) logits
-        logits = self.binding.prune_logits(outputs.tree.e_g_prime)
-        outputs[self.binding.logits_key] = logits
-        outputs.prune_keep = self.binding.prune_mask(logits)
+        with tracing.span("model.binding"):
+            # existence (balanced) or distance (adaptive) logits
+            logits = self.binding.prune_logits(outputs.tree.e_g_prime)
+            outputs[self.binding.logits_key] = logits
+            outputs.prune_keep = self.binding.prune_mask(logits)
         losses = AttrDict()
         if "traj_seq" in inputs and phase == "train":
-            self.compute_matching(inputs, outputs, step)
-            losses = self.compute_losses(inputs, outputs, step)
-            losses.update(self.binding.loss(outputs))
-            # the matched latent timeline feeds the auxiliary models
-            idx = torch.argmax(outputs.gt_match_dists, dim=1)  # [B, T]
-            rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
-            inputs.model_enc_seq = outputs.tree.e_g_prime[rows, idx]
-            outputs.update(self.run_aux_models(inputs, phase, generator))
-            losses.update(self.aux_losses(inputs, outputs))
-            losses = self.assemble_total(inputs, losses)
+            with tracing.span("model.binding"):
+                self.compute_matching(inputs, outputs, step)
+            with tracing.span("model.losses"):
+                losses = self.compute_losses(inputs, outputs, step)
+                losses.update(self.binding.loss(outputs))
+                # the matched latent timeline feeds the auxiliary models
+                idx = torch.argmax(outputs.gt_match_dists, dim=1)  # [B, T]
+                rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+                inputs.model_enc_seq = outputs.tree.e_g_prime[rows, idx]
+                outputs.update(self.run_aux_models(inputs, phase, generator))
+                losses.update(self.aux_losses(inputs, outputs))
+                losses = self.assemble_total(inputs, losses)
         if phase == "plan":
             outputs.update(self.plan_outputs(outputs))
         outputs.losses = losses

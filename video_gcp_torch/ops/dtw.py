@@ -22,6 +22,7 @@ from typing import List, Tuple
 
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.ops.cdist import batch_cdist
 
 
@@ -54,6 +55,7 @@ def min_cumsum(C: torch.Tensor) -> torch.Tensor:
     return D.reshape(b, r + 1, c + 1)
 
 
+@tracing.spanned("dtw")
 def batched_dtw_alignment(C: torch.Tensor, end_inds: torch.Tensor):
     """DTW, traceback and per-frame best node, batched.
 
@@ -65,7 +67,8 @@ def batched_dtw_alignment(C: torch.Tensor, end_inds: torch.Tensor):
     """
     b, r, c = C.shape
     cw = c + 1
-    D = min_cumsum(C)
+    with tracing.span("dtw.dp"):
+        D = min_cumsum(C)
     flat = D.reshape(b, -1)
     end = end_inds.to(device=C.device, dtype=torch.int64)
     rows = torch.arange(b, device=C.device)
@@ -73,34 +76,35 @@ def batched_dtw_alignment(C: torch.Tensor, end_inds: torch.Tensor):
 
     # the walk from (r, end + 1) to (1, 1): r + c visits, the last ones
     # staying at (1, 1)
-    neighbours = torch.tensor([cw + 1, cw, 1], device=C.device)
-    moves = torch.tensor([[1, 1], [1, 0], [0, 1]], device=C.device)
-    i = torch.full((b,), r, dtype=torch.int64, device=C.device)
-    j = end + 1
-    path = torch.empty((b, r + c), dtype=torch.int64, device=C.device)
-    for s in range(r + c):
-        f = i * cw + j
-        path[:, s] = f
-        step = moves[torch.argmin(flat.gather(1, f[:, None] - neighbours), dim=1)]
-        i = torch.clamp(i - step[:, 0], min=1)
-        j = torch.clamp(j - step[:, 1], min=1)
+    with tracing.span("dtw.traceback"):
+        neighbours = torch.tensor([cw + 1, cw, 1], device=C.device)
+        moves = torch.tensor([[1, 1], [1, 0], [0, 1]], device=C.device)
+        i = torch.full((b,), r, dtype=torch.int64, device=C.device)
+        j = end + 1
+        path = torch.empty((b, r + c), dtype=torch.int64, device=C.device)
+        for s in range(r + c):
+            f = i * cw + j
+            path[:, s] = f
+            step = moves[torch.argmin(flat.gather(1, f[:, None] - neighbours), dim=1)]
+            i = torch.clamp(i - step[:, 0], min=1)
+            j = torch.clamp(j - step[:, 1], min=1)
 
     # per column the visited cell of least cost; on a tie the later visit,
     # which is the smaller node index (the JAX scan's running `<=`)
-    cost = flat.gather(1, path)
-    node = path // cw - 1
-    col = torch.clamp(path % cw - 1, 0, c - 1)
-    best_cost = torch.full((b, c), float("inf"), dtype=C.dtype, device=C.device)
-    best_cost = best_cost.scatter_reduce(1, col, cost, "amin")
-    on_best = cost == best_cost.gather(1, col)
-    none = r  # above every node index
-    best_node = torch.full((b, c), none, dtype=torch.int64, device=C.device)
-    best_node = best_node.scatter_reduce(
-        1, col, torch.where(on_best, node, torch.full_like(node, none)), "amin")
-    best_node = torch.where(best_node == none, torch.zeros_like(best_node), best_node)
-
-    t_idx = torch.arange(c, device=C.device)[None, :]
-    inds = best_node.gather(1, torch.minimum(t_idx, end[:, None]))
+    with tracing.span("dtw.match"):
+        cost = flat.gather(1, path)
+        node = path // cw - 1
+        col = torch.clamp(path % cw - 1, 0, c - 1)
+        best_cost = torch.full((b, c), float("inf"), dtype=C.dtype, device=C.device)
+        best_cost = best_cost.scatter_reduce(1, col, cost, "amin")
+        on_best = cost == best_cost.gather(1, col)
+        none = r  # above every node index
+        best_node = torch.full((b, c), none, dtype=torch.int64, device=C.device)
+        best_node = best_node.scatter_reduce(
+            1, col, torch.where(on_best, node, torch.full_like(node, none)), "amin")
+        best_node = torch.where(best_node == none, torch.zeros_like(best_node), best_node)
+        t_idx = torch.arange(c, device=C.device)[None, :]
+        inds = best_node.gather(1, torch.minimum(t_idx, end[:, None]))
     return inds, dist
 
 

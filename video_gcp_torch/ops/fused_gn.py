@@ -29,8 +29,9 @@ on a CPU tensor they compute the plain twins `gn_lrelu_reference` and
 `gn_lrelu_bwd_reference`. The gradient that reaches the norm comes from the
 next conv's cuDNN dgrad or from a `torch.cat` (decoder skips), whose layouts
 are not guaranteed: the backward copies a dy that is not NHWC-contiguous and
-counts the copy in `BWD_DY_COPIES` (2 per step of the 9-room training run
-on an H100; PERF.md).
+counts the copy in `tracing.COUNTS["k2.dy_copies"]` (2 per step of the
+9-room training run on an H100; PERF.md). K1 and K2 launches count under
+"k1.launches" and "k2.launches".
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from dataclasses import astuple, dataclass
 
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.ops import cuda_build
 
 SOURCE = "fused_gn.cu"
@@ -56,10 +58,6 @@ CTA_CACHE_BYTES = 64 * 1024  # samples a CTA caches: three CTAs share an SM
 VECS_PER_THREAD = 16  # 16-byte vectors a thread takes per pass
 PACKED_THREADS = 256  # CTA size when small samples are packed
 FIN_ONE_LEVEL_BYTES = 32 * 1024  # K2: one CTA sums all dscale/dbias rows up to this
-
-LAUNCHES = 0  # K1 launches since import (or since a caller reset it)
-BWD_LAUNCHES = 0  # K2 launches
-BWD_DY_COPIES = 0  # dy copied to NHWC-contiguous before a K2 launch
 
 _lib = None
 _tickets: dict = {}  # (device index, stream) -> int32 K2 tickets, zero between launches
@@ -248,7 +246,6 @@ def gn_lrelu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  num_groups: int, eps: float = 1e-6,
                  slope: float = 0.2) -> torch.Tensor:
     """K1 on a CUDA tensor, its twin on a CPU tensor; no autograd."""
-    global LAUNCHES
     if _device(x) == "cpu":
         return gn_lrelu_reference(x, scale, bias, num_groups, eps, slope)
     _check(x, scale, bias, num_groups)
@@ -266,7 +263,7 @@ def gn_lrelu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  eps, slope, _c_plan(plan), cuda_build.stream(x))
     if err != 0:
         raise RuntimeError(f"gn_lrelu_fwd launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    tracing.count("k1.launches")
     return y
 
 
@@ -291,7 +288,6 @@ def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, num_groups: int, eps: float = 1e-6,
                  slope: float = 0.2):
     """K2 on CUDA tensors, its twin on CPU tensors: (dx, dscale, dbias)."""
-    global BWD_LAUNCHES, BWD_DY_COPIES
     if _device(x) == "cpu":
         return gn_lrelu_bwd_reference(x, dy, scale, bias, num_groups, eps, slope)
     _check(x, scale, bias, num_groups)
@@ -304,7 +300,7 @@ def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                          f"match x {tuple(x.shape)} {x.dtype}")
     if not dy.is_contiguous():
         dy = dy.contiguous()
-        BWD_DY_COPIES += 1
+        tracing.count("k2.dy_copies")
     plan = _plan(x, num_groups, True, dy)
     dx = torch.empty_like(x)
     if plan.ctas == 0:
@@ -324,7 +320,7 @@ def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                  _c_plan(plan), stream)
     if err != 0:
         raise RuntimeError(f"gn_lrelu_bwd launch failed: CUDA error {err}")
-    BWD_LAUNCHES += 1
+    tracing.count("k2.launches")
     dscale, dbias = ws[-2 * c:-c], ws[-c:]
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         dscale, dbias = dscale.to(scale.dtype), dbias.to(bias.dtype)

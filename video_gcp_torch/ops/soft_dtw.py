@@ -45,6 +45,7 @@ from dataclasses import astuple, dataclass
 
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.ops import cuda_build
 
 SOURCE = "soft_dtw.cu"
@@ -60,8 +61,6 @@ CHUNK_BYTES = 4096  # bytes of C one copy brings, at least 4 rows
 COLS_PER_LANE = (4, 8, 12)  # V: instances in the csrc, the first that fits
 MAX_CHAIN_WARPS = 7  # warps a DP chain may span (kMaxChainWarps)
 THREADS = 512  # a block: the producer warp, two chains, and the rest join the epilogue
-
-LAUNCHES = 0  # K3 launches since import (or since a caller reset it)
 
 _lib = None
 
@@ -217,8 +216,8 @@ def log1p_mismatches(device) -> int:
 
 def k3(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
     """K3 on a CUDA tensor, its twin on a CPU tensor: w for C [B, r, c]
-    float32 and end_inds [B] int64, or (w, F, Bk) with `return_dp`."""
-    global LAUNCHES
+    float32 and end_inds [B] int64, or (w, F, Bk) with `return_dp`; each
+    launch counts under `tracing.COUNTS["k3.launches"]`."""
     if C.device.type == "cpu":
         return soft_dtw_rows_reference(C, end_inds, return_dp)
     if C.device.type != "cuda":
@@ -244,7 +243,7 @@ def k3(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
                                    _c_plan(plan), cuda_build.stream(C))
         if err != 0:
             raise RuntimeError(f"soft_dtw launch failed: CUDA error {err}")
-        LAUNCHES += 1
+        tracing.count("k3.launches")
     return (w, dp[:, 0], dp[:, 1]) if return_dp else w
 
 

@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.ops.tree_index import per_level_means
 from video_gcp_torch.parallel.mesh import axis_size, param_shardings
@@ -161,6 +162,7 @@ def _global_metrics(metrics: AttrDict) -> AttrDict:
     return out
 
 
+@tracing.spanned("train_step")
 def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
                step: int, generator: torch.Generator, mesh=None) -> AttrDict:
     """Forward in phase 'train' / mode 'posterior', backward, finite mask,
@@ -179,28 +181,31 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
     out = model(batch, phase="train", mode="posterior", generator=generator,
                 step=step)
     losses = out.losses
-    losses.total.value.backward()
+    with tracing.span("train.backward"):
+        losses.total.value.backward()
 
     params = _params(optimizer)
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    clip = optimizer.param_groups[0].get("gradient_clip")
-    if mesh is None:
-        # every gradient, also of parameters the optimizer does not step
-        # (the inverse-model fine-tune's frozen trunk): the JAX step masks
-        # and measures all of them, and clips only what its optimizer sees
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        for g in grads:
-            g.masked_fill_(~grads_finite, 0.0)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        if clip is not None:
-            torch.nn.utils.clip_grad_norm_(params, clip)
-    else:
-        grad_norm, grads_finite = _reduced_grads(params, mesh, clip)
-    optimizer.step()
+    with tracing.span("train.grad_mask"):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clip = optimizer.param_groups[0].get("gradient_clip")
+        if mesh is None:
+            # every gradient, also of parameters the optimizer does not step
+            # (the inverse-model fine-tune's frozen trunk): the JAX step masks
+            # and measures all of them, and clips only what its optimizer sees
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+            for g in grads:
+                g.masked_fill_(~grads_finite, 0.0)
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            if clip is not None:
+                torch.nn.utils.clip_grad_norm_(params, clip)
+        else:
+            grad_norm, grads_finite = _reduced_grads(params, mesh, clip)
+    with tracing.span("train.optimizer"):
+        optimizer.step()
 
     metrics = AttrDict({k: v.value.detach() for k, v in losses.items()})
     metrics.grads_finite = grads_finite

@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.params import ParamDict
 from video_gcp_torch.planning.cem.cost_fcn import (
@@ -158,7 +159,7 @@ class CEMPlanner:
         self._sampler.init()
         elite, history = run_cem(
             self._hp.n_iters, self._hp.batch_size,
-            self._sampler.sample,
+            self._sample,
             lambda z: self._evaluate(state, goal_state, z),
             lambda rollouts, z: self._select_elites(rollouts, goal_state, z),
             self._sampler.fit,
@@ -175,6 +176,10 @@ class CEMPlanner:
             final.latents[0],
             elite.scores[0],
         )
+
+    def _sample(self, n_samples):
+        with tracing.span("plan.sampler"):
+            return self._sampler.sample(n_samples)
 
     def _evaluate(self, state, goal, samples) -> RolloutBatch:
         """Roll every candidate through the model, in device-batched chunks of
@@ -300,15 +305,16 @@ class HierarchicalCEMPlanner(CEMPlanner):
     def _select_elites(self, rollouts, goal, samples):
         if not isinstance(self._sampler, HierarchicalTreeCEMSampler):
             return super()._select_elites(rollouts, goal, samples)
-        best_rollouts, best_costs = self._sampler.optimize(
-            rollouts.predictions, goal)
+        with tracing.span("plan.sampler"):
+            best_rollouts, best_costs = self._sampler.optimize(
+                rollouts.predictions, goal)
         # the optimizer froze one more layer: draw the follow-up candidates
         # under the updated schedule for the next iteration / final rollout
         return EliteSet(
             images=best_rollouts,
             states=rollouts.states,
             scores=best_costs,
-            samples=self._sampler.sample(self._hp.batch_size),
+            samples=self._sample(self._hp.batch_size),
         )
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.attrdict import listdict2dictlist
 
@@ -161,7 +162,7 @@ def make_test_time_cost_fn(checkpt_path, load_epoch="latest",
         with torch.inference_mode():
             a = torch.as_tensor(np.asarray(e1, np.float32), device=device)
             b = torch.as_tensor(np.asarray(e2, np.float32), device=device)
-            return model(a, b).cpu().numpy()
+            return tracing.to_host(model(a, b), "cost.result").numpy()
 
     return run
 
@@ -185,7 +186,14 @@ class LearnedCostEstimate:
             )
         self._input_dim = config.get("input_dim", 128)
 
+    @tracing.spanned("plan.cost")
     def __call__(self, start_enc, goal_enc):
+        return self._cost(*self._encodings(start_enc, goal_enc))
+
+    def _encodings(self, start_enc, goal_enc):
+        return start_enc, goal_enc
+
+    def _cost(self, start_enc, goal_enc):
         if isinstance(start_enc, np.ndarray):
             return np.asarray(self.net(start_enc, goal_enc))[..., 0]
         if isinstance(start_enc, list):
@@ -217,9 +225,8 @@ class ImageWrappedLearnedCostFcn(LearnedCostEstimate, ImageCost):
     """Unpacks image+latent rollouts, scores latents against the final latent
     (goal-conditioned prediction, cost_fcn.py:108-117)."""
 
-    def __call__(self, start_enc, goal_enc):
+    def _encodings(self, start_enc, goal_enc):
         start_enc = self._split_state_rollout(start_enc).latent_rollout
         # the reference reuses the LAST rollout's full latent sequence as the
         # goal for every rollout (cost_fcn.py:115, goal-cond prediction hack)
-        goal_enc = [start_enc[-1] for _ in range(len(start_enc))]
-        return LearnedCostEstimate.__call__(self, start_enc, goal_enc)
+        return start_enc, [start_enc[-1] for _ in range(len(start_enc))]

@@ -8,7 +8,8 @@ rollouts: predictions (flattened frames [+ latents]), inferred actions,
 regressed states, latents.
 
 One model call per chunk of candidates, under `torch.inference_mode`, on the
-model's device. Each output comes back to the host in one copy per chunk.
+model's device. Each output comes back to the host in one copy per chunk
+(`tracing.to_host`, site "sim.outputs").
 The JAX package padded every call to its largest candidate count so that
 one traced graph served every call of a run; the padding rows were
 discarded, so the port runs each call at its own count, with the same
@@ -39,6 +40,7 @@ import copy
 import numpy as np
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.planning.infra.sim.benchmarks import heartbeat
 
@@ -72,7 +74,6 @@ class GCPSimulator:
                            if self.draws_z else {})
         self.host_generator = torch.Generator().manual_seed(0)  # the lengths' draws
         self._pad_bucket = 1  # the candidate count of the last call, padded
-        self.host_bytes = 0  # bytes copied to the host by the last rollout
 
     @staticmethod
     def _observation(x) -> np.ndarray:
@@ -102,28 +103,32 @@ class GCPSimulator:
         per = self._pad_bucket // n
         with torch.inference_mode():
             outs = []
-            for i, dev in enumerate(self.devices):  # every chunk launched first
-                chunk = AttrDict({k: v[i * per:(i + 1) * per].to(dev, non_blocking=True)
-                                  for k, v in inputs.items()})
-                outs.append(self._replicas[dev](chunk, phase="plan", mode="prior",
-                                                pred_length=True,
-                                                generator=self.generators.get(dev)))
+            with tracing.span("sim.forward"):
+                for i, dev in enumerate(self.devices):  # every chunk launched first
+                    chunk = AttrDict({k: v[i * per:(i + 1) * per].to(dev, non_blocking=True)
+                                      for k, v in inputs.items()})
+                    outs.append(self._replicas[dev](chunk, phase="plan", mode="prior",
+                                                    pred_length=True,
+                                                    generator=self.generators.get(dev)))
             keys = [k for k in PLAN_KEYS if k in outs[0]]
-            if n == 1:
-                host = AttrDict({k: outs[0][k].cpu().numpy() for k in keys})
-            else:
-                host = AttrDict()
-                pin = any(d.type == "cuda" for d in self.devices)
-                for k in keys:
-                    x = outs[0][k]
-                    whole = torch.empty((self._pad_bucket,) + x.shape[1:], dtype=x.dtype,
-                                        pin_memory=pin)
-                    for i, o in enumerate(outs):
-                        whole[i * per:(i + 1) * per].copy_(o[k])
-                    host[k] = whole.numpy()[:b]
-        self.host_bytes = sum(v.nbytes for v in host.values())
+            with tracing.span("sim.to_host"):
+                if n == 1:
+                    host = AttrDict({k: tracing.to_host(outs[0][k], "sim.outputs").numpy()
+                                     for k in keys})
+                else:
+                    host = AttrDict()
+                    pin = any(d.type == "cuda" for d in self.devices)
+                    for k in keys:
+                        x = outs[0][k]
+                        whole = torch.empty((self._pad_bucket,) + x.shape[1:], dtype=x.dtype,
+                                            pin_memory=pin)
+                        for i, o in enumerate(outs):
+                            tracing.to_host(o[k], "sim.outputs",
+                                            out=whole[i * per:(i + 1) * per])
+                        host[k] = whole.numpy()[:b]
         return host
 
+    @tracing.spanned("plan.simulator")
     def rollout(self, state, goal_state, samples, rollout_len) -> AttrDict:
         heartbeat()
         b = samples.shape[0]
@@ -134,17 +139,18 @@ class GCPSimulator:
             return np.asarray(x[i, : end_ind[i] + 1])
 
         predictions, actions, states, latents = [], [], [], []
-        for i in range(b):
-            frames = cap(out.timeline_images, i).reshape(end_ind[i] + 1, -1)
-            lat = cap(out.timeline_latents, i)
-            if self._append_latent:
-                frames = np.concatenate([frames, lat], axis=-1)
-            predictions.append(frames)
-            latents.append(lat)
-            if "actions" in out:
-                actions.append(np.asarray(out.actions[i, : end_ind[i] + 1]))
-            if "regressed_state" in out:
-                states.append(cap(out.regressed_state, i))
+        with tracing.span("sim.cap"):
+            for i in range(b):
+                frames = cap(out.timeline_images, i).reshape(end_ind[i] + 1, -1)
+                lat = cap(out.timeline_latents, i)
+                if self._append_latent:
+                    frames = np.concatenate([frames, lat], axis=-1)
+                predictions.append(frames)
+                latents.append(lat)
+                if "actions" in out:
+                    actions.append(np.asarray(out.actions[i, : end_ind[i] + 1]))
+                if "regressed_state" in out:
+                    states.append(cap(out.regressed_state, i))
         return AttrDict(
             predictions=predictions, actions=actions, states=states,
             latents=latents,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.load import set_float32_precision
 from video_gcp_torch.models.hyperparameters import default_hparams
@@ -207,6 +208,7 @@ class CEMPolicy(PlannerPolicy):
         self._states = state
         return super().act(t, i_tr, state, goal)
 
+    @tracing.spanned("plan.request")
     def _plan(self, state, goal, step):
         input_goal = goal[-1] if np.ndim(goal) > 1 else goal
         self.image_plan, action_plan, self.latent_plan, self.plan_cost = \
@@ -252,6 +254,7 @@ class ImageCEMPolicy(CEMPolicy):
         self._states = state
         return super().act(t, i_tr, images, goal_image, run_super=True)
 
+    @tracing.spanned("plan.request")
     def _plan(self, state, goal, step):
         self.image_plan, self.action_plan, self.latent_plan, self.plan_cost = \
             self._cem_planner(state[None] if np.ndim(state) == 3 else state,

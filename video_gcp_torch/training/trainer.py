@@ -62,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.metrics import mse, psnr, ssim, to_float_images
 from video_gcp_torch.data.datasets import GlobalSplitVarLenVideoDataset, RandomVideoDataset
@@ -137,9 +138,9 @@ def parse_args(argv=None):
     p.add_argument("--skip_first_val", default=0, type=int)
     p.add_argument("--feed_random_data", default=0, type=int)
     p.add_argument("--verbose_timing", default=0, type=int,
-                   help="synchronize the device after every step and record "
-                        "its wall time and the wait for its batch "
-                        "(ModelTrainer.step_seconds, data_seconds)")
+                   help="trace each epoch (video_gcp_torch.tracing), each "
+                        "step waiting for the device, and print its median "
+                        "'train_step' and 'trainer.data' span")
     p.add_argument("--val_metric_batches", default=4, type=int,
                    help="val batches for the quick per-epoch PSNR/SSIM/MSE of "
                         "one prior sample (the whole val split when it has "
@@ -219,8 +220,6 @@ class ModelTrainer:
             seed = int(t[0]) + axis_rank(self.mesh, "data")
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.step = 0
-        self.step_seconds = []  # per step, with --verbose_timing
-        self.data_seconds = []  # the wait for each step's batch, likewise
         if path is not None and not path.endswith(".npz"):
             self.step = ckpt.load_checkpoint(path, self.model, self.optimizer)
             m = re.search(r"weights_ep(\d+)", path)
@@ -396,25 +395,37 @@ class ModelTrainer:
         self.logger.flush()
         return summary
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def train_epoch(self, epoch: int):
-        meters = AttrDict(data=AverageMeter(), step=AverageMeter())
+        if not self.args.verbose_timing:
+            return self._train_epoch(epoch)
+        with tracing.session(synchronize=True) as trace:
+            self._train_epoch(epoch)
+        steps = trace.seconds("train_step")
+        if steps:  # the last 'trainer.data' span is the wait that found the end
+            self.print(f"epoch {epoch}: median step {statistics.median(steps):.4f}s, median "
+                       f"wait for a batch {statistics.median(trace.seconds('trainer.data')):.4f}s")
+
+    def _batches(self):
+        """The train loader's batches, each wait for one a 'trainer.data' span."""
+        batches = iter(self.train_loader)
+        while True:
+            with tracing.span("trainer.data"):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
+
+    def _train_epoch(self, epoch: int):
+        meters = AttrDict(data=AverageMeter(), step=AverageMeter())  # the ETA line's
         n_batches = len(self.train_loader)
         self.model.train()
         t0 = time.time()
-        for i, batch in enumerate(self.train_loader):
+        for i, batch in enumerate(self._batches()):
             t1 = time.time()
             meters.data.update(t1 - t0)
             metrics = train_step(self.model, self.optimizer, batch, self.step,
                                  self.generator, self.mesh)
             self.step += 1
-            if self.args.verbose_timing:
-                self._sync()
-                self.step_seconds.append(time.time() - t1)
-                self.data_seconds.append(t1 - t0)
             if i % self.args.log_outputs_interval == 0:
                 metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
                 self.logger.log_scalar_dict(
@@ -436,8 +447,6 @@ class ModelTrainer:
             else:
                 meters.step.update(time.time() - t1)
             t0 = time.time()
-        if self.step_seconds:
-            self.print(f"epoch {epoch}: median step {statistics.median(self.step_seconds):.4f}s")
 
     def val(self, epoch: int):
         losses_acc = {}
