@@ -6,11 +6,13 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 1. Build: compiles kernels K1 (GroupNorm+LeakyReLU forward) and K2 (its
-   backward), both in video_gcp_torch/csrc/fused_gn.cu, and K3 (the
+   backward), both in video_gcp_torch/csrc/fused_gn.cu, K3 (the
    soft-DTW posterior: both DPs row by row and w in one launch),
-   video_gcp_torch/csrc/soft_dtw.cu, with nvcc for
+   video_gcp_torch/csrc/soft_dtw.cu, and K4 (the evaluation DTW: DP,
+   traceback and per-frame match in one launch),
+   video_gcp_torch/csrc/dtw_align.cu, with nvcc for
    sm_90a, one nvcc per source, started together; prints the build time and
-   both ptxas reports.
+   the ptxas reports.
 2. K1 phase: K1 against its plain PyTorch twin on the card at every
    GroupNorm site of the 9-room GCP-tree (5 encoder, 5 decoder) at batch 16
    and at the CEM batch of 100 candidates, the train step's encoder on its
@@ -61,6 +63,17 @@ Run from the root of the repository, with no arguments:
    kernels per call (torch.profiler). First it checks that the kernel's
    branch-free log1p equals the CUDA library's log1pf on every float in
    [0, 1].
+4b. K4 phase: `batched_dtw_alignment` on the card (K4) against its twin
+   `alignment_reference` run on the CPU, at the 9-room tree's
+   [16, 127, 100] and the 500-frame tree's [1, 511, 500] and
+   [16, 511, 500] (K4_SHAPES), random costs with mixed ends: the node
+   indices, D (the kernel's debug output) and the distances bit for bit.
+   Prints the call's time (CUDA events, median of 25), K4's own device time
+   (torch.profiler, n/m unless the trace holds one K4 a call), the twin's
+   time on the card, the bytes bound, the chain's r + c - 1 DP steps and
+   the device µs a step, the wrapper's host time and the device kernels a
+   call; at the 500-frame shapes also the DTW's ms in one top-of-100 batch
+   of the Evaluator.
 5. Slice phase (serving): load_model() of 9room/gcp_tree with the ep74
    weights on the card; two 'test'/'prior' rollouts at B=16 (cold, then
    warm); three planner calls ('plan', predicted length) of 100 candidates
@@ -201,16 +214,15 @@ Run from the root of the repository, with no arguments:
    finite val losses, 55 K1 at each horizon, the trainer's own model back
    unchanged) and `--metric 1` (the Evaluator's top-of-100 under
    'pruned_dtw' on the val batch of 1, the only cut: 15 K1 a sampled
-   forward, finite eval/ metrics). batched_dtw_alignment is timed at [1,
-   511, 500] and [16, 511, 500] with its device launches and held card vs
-   CPU at the larger (the same node indices, distances within 1e-5).
+   forward, one K4 launch a sampled forward, finite eval/ metrics; the
+   DTW at its shapes is phase 4b's).
    25room_long/gcp_sequential (the VRNN over 499 steps) trains likewise:
    20 K1 and 20 K2 a step, 55 K1 in its val pass, one step card vs CPU.
    Prints seconds per generated trajectory and the mean path length, each
    model's synced ms a step, t_data, training frames/s, device-busy ms a
    step and idle share, the peak device memory, the sweep's val losses, the
-   Evaluator's seconds a batch, the DTW's ms and launches, and the seconds
-   of each part. The K1 and K2 phases hold the kernels at this path's sites
+   Evaluator's seconds a batch and K4 launches, and the seconds of each
+   part. The K1 and K2 phases hold the kernels at this path's sites
    (LONG_K1_SHAPES, LONG_K2_SHAPES).
 
 11. h5 phase (run right after the train phase): the port's PRM expert makes
@@ -295,8 +307,8 @@ and times them in turns with this checkout's at every shape of phases 2 to 4
 (new, old, old, new); for K3 it times the whole soft_dtw() calls (the
 parent's: dp_rows, its K3 and posterior) and checks that this checkout's F
 and Bk equal the parent's DP values bit for bit and w is within 1e-6 of the
-parent's. --kernels-only stops after those phases and prints their rows as
-JSON.
+parent's. K4 has no parent kernel: phase 4b times it beside its twin.
+--kernels-only stops after phases 2 to 4b and prints their rows as JSON.
 
     python3 chip_smoke.py --room25-only
 
@@ -381,6 +393,9 @@ K3_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (TRAIN_B, 511, 500)]
 K3_OPS_PER_CELL = 26
 TOL_K3 = 1e-4  # w absolute (tests/test_torch_soft_dtw.py); D relative to max(1, |D|)
 TOL_K3_PARENT = 1e-6  # w against the earlier checkout's K3 and torch posterior
+# K4: [B, r, c] of the 9-room tree's 'dtw' evaluation and of the 500-frame
+# tree's 'pruned_dtw' evaluation (one example, and the benchmark's batch)
+K4_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (1, 511, 500), (TRAIN_B, 511, 500)]
 # bf16: mean |diff| per tree level, tests/test_torch_bf16.py
 TOLS_BF16_MEAN = dict(images=3e-3, e_g_prime=1.5e-2)
 BF16_STEPS = 8
@@ -662,6 +677,7 @@ def load_parent(parent, cuda_build, name):
 # with a second, reducing kernel
 K1_TAGS, K2_TAGS = ("gn_lrelu_fwd",), ("gn_lrelu_bwd", "gn_bwd_param_reduce")
 K3_TAGS = ("soft_dtw_kernel",)
+K4_TAGS = ("dtw_align_kernel",)
 
 
 def path_sums(tag, rows, keys, paths):
@@ -1024,6 +1040,61 @@ def k3_phase(torch, soft_dtw, parent=None):
     return rows_out
 
 
+def k4_bound(b, r, c):
+    """Read C once and write the matches (gcpbench.yardstick.dtw_bytes)."""
+    return (b * r * c * 4 + b * c * 8) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def dtw_rows(torch, dtw, shapes, tag):
+    """`batched_dtw_alignment` (K4) on the card against the twin on the CPU
+    at each [B, r, c] of `shapes`, random costs with mixed ends: node
+    indices, D and distances bit for bit; then its times (phase 4b).
+    Returns the rows."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    rows_out = []
+    print(f"{tag} batched_dtw_alignment: [B, r, c] | ms device_ms plain_ms bound_ms | "
+          "r+c-1 us_per_step | host_us kernels_per_call")
+    for b, r, c in shapes:
+        cost = torch.rand(b, r, c, generator=gen, device="cuda")
+        ends = torch.tensor([c - 1, int(c * 0.806), int(c * 0.434), 0], device="cuda")
+        ends = ends[torch.arange(b, device="cuda") % 4]  # mixed ends
+        inds, dist, D = (t.cpu() for t in dtw.k4(cost, ends, return_dp=True))
+        want_inds, want_dist = dtw.alignment_reference(cost.cpu(), ends.cpu())
+        same = dict(inds=torch.equal(inds, want_inds),
+                    D=torch.equal(D, dtw.min_cumsum(cost.cpu())), dist=torch.equal(dist, want_dist))
+        if not all(same.values()):
+            fail(f"{tag}: K4 against its twin at {[b, r, c]}: equal {same}")
+        del inds, dist, D, want_inds, want_dist
+        call = lambda: dtw.batched_dtw_alignment(cost, ends)  # noqa: E731
+        row = dict(shape=[b, r, c], dtype="float32", max_abs_err=0.0, library_ms=None)
+        row["ms"] = time_ms(torch, call)
+        row["device_ms"], = device_ms_each(torch, lambda: [call], 1, K4_TAGS)
+        row["plain_ms"] = time_ms(torch, lambda: dtw.alignment_reference(cost, ends),
+                                  reps=3, warmup=1)
+        row["host_us"] = host_us(torch, call)
+        row["kernels_per_call"] = kernels_per_call(torch, call)
+        row["bound_ms"], row["bound_by"] = k4_bound(b, r, c)
+        row["chain_steps"] = r + c - 1
+        rows_out.append(row)
+        per_step = (row["device_ms"] or row["ms"]) * 1e3 / row["chain_steps"]
+        print(f"{tag} {[b, r, c]} | {row['ms']:.4f} {fmt(row['device_ms'])} "
+              f"{row['plain_ms']:.4f} {row['bound_ms']:.5f} | {r + c - 1} {per_step:.4f} | "
+              f"{row['host_us']:.1f} {row['kernels_per_call']:g}")
+    return rows_out
+
+
+def k4_phase(torch, dtw):
+    from video_gcp_torch.evaluation.evaluator import Evaluator
+
+    rows = dtw_rows(torch, dtw, K4_SHAPES, "K4")
+    n_samples = 100 + Evaluator.N_PLOTTED_ELEMENTS
+    for row in rows:
+        if row["shape"][1:] == [LONG_NODES, LONG_T]:
+            print(f"K4 batched_dtw_alignment x {n_samples} in a top-of-100 batch of the "
+                  f"Evaluator at B={row['shape'][0]}: {n_samples * row['ms']:.2f} ms")
+    return rows
+
+
 def max_diff(a, b):
     return (a.detach().float().cpu() - b.detach().float().cpu()).abs().max().item()
 
@@ -1329,6 +1400,7 @@ def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader,
     # 'pruned_dtw', a shorter run of the same protocol
     ev_p = Evaluator(model, str(out_dir / "pruned"), {}, TRAIN_T, "pruned_dtw")
     ev_p._top_of = 10
+    COUNTS["k4.launches"] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_p = ev_p.eval(batch, gen)
@@ -1336,6 +1408,10 @@ def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader,
     sec_p = time.perf_counter() - t0
     if not all(np.isfinite(v).all() for v in res_p.metrics.values()):
         fail("eval: pruned_dtw metrics not finite")
+    k4_p = COUNTS["k4.launches"]
+    if k4_p != 10 + min(10, ev_p.N_PLOTTED_ELEMENTS):
+        fail(f"eval: {k4_p} K4 launches in a 'pruned_dtw' top-of-10 call, expected one a "
+             f"sampled forward")
     est = torch.rand(TRAIN_B, N_NODES, 32, 32, 3, generator=gen, device="cuda") * 2 - 1
     tgt = torch.rand(TRAIN_B, TRAIN_T, 32, 32, 3, generator=gen, device="cuda") * 2 - 1
     ends = batch.end_ind
@@ -1344,8 +1420,9 @@ def eval_phase(torch, fused_gn, soft_dtw, model, cpu_model, dataset, DataLoader,
     align_ms = time_ms(torch, lambda: batched_dtw_alignment(cost, ends), reps=5, warmup=1)
     print(f"eval: Evaluator 'pruned_dtw' top-of-10: {sec_p:.3f} s per batch, "
           f"{10 * TRAIN_B * N_NODES / sec_p:.0f} decoded frames/s, mse best "
-          f"{res_p.metrics['mse'].min(1).mean():.6g}; DTW warp at [{TRAIN_B}, {N_NODES}, "
-          f"{TRAIN_T}] {warp_ms:.3f} ms (alignment alone {align_ms:.3f} ms)")
+          f"{res_p.metrics['mse'].min(1).mean():.6g}, K4 launches {k4_p}; DTW warp at "
+          f"[{TRAIN_B}, {N_NODES}, {TRAIN_T}] {warp_ms:.3f} ms (alignment alone "
+          f"{align_ms:.3f} ms)")
 
     # the greedy schemes at top-of-10: ep74's existence predictor
     # (greedy_exist) and the root-down least-L2 match (greedy_l2)
@@ -3017,8 +3094,8 @@ def long_sweep(torch, fused_gn, soft_dtw, trainer_mod, conf, tag):
 def long_eval(torch, fused_gn, soft_dtw, trainer_mod, conf, tag):
     """`--metric 1` on the trained tree: the Evaluator's top-of-100 under
     the config's 'pruned_dtw' on the val split (one batch of LONG_EVAL_B, the
-    only cut). Checks 15 K1 a sampled forward, no K2 or K3, and finite
-    eval/... metrics; then long_dtw. Returns the launches."""
+    only cut). Checks 15 K1 and one K4 a sampled forward, no K2 or K3, and
+    finite eval/... metrics. Returns the K1/K2/K3/K4 launches."""
     from video_gcp_torch.evaluation.evaluator import Evaluator
 
     trainer = _trainer_run(trainer_mod, conf, ["--metric", "1"])
@@ -3031,56 +3108,29 @@ def long_eval(torch, fused_gn, soft_dtw, trainer_mod, conf, tag):
              f"examples, expected one of {LONG_EVAL_B}")
     summaries, real = [], trainer.run_metric_eval
     trainer.run_metric_eval = lambda: summaries.append(real()) or summaries[-1]
-    COUNTS["k1.launches"] = COUNTS["k2.launches"] = COUNTS["k3.launches"] = 0
+    for k in ("k1.launches", "k2.launches", "k3.launches", "k4.launches"):
+        COUNTS[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _run_captured(trainer)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"])
+    launches = (COUNTS["k1.launches"], COUNTS["k2.launches"], COUNTS["k3.launches"],
+                COUNTS["k4.launches"])
     n_samples = 100 + Evaluator.N_PLOTTED_ELEMENTS
-    if launches != (15 * n_samples, 0, 0):
-        fail(f"{tag}: K1/K2/K3 launches {launches} for {n_samples} sampled forwards, "
-             f"expected 15 K1 each")
+    if launches != (15 * n_samples, 0, 0, n_samples):
+        fail(f"{tag}: K1/K2/K3/K4 launches {launches} for {n_samples} sampled forwards, "
+             f"expected 15 K1 and one K4 each")
     summary, = summaries
     if not summary or not all(np.isfinite(v) for v in summary.values()):
         fail(f"{tag}: eval metrics {summary}")
     print(f"{tag}: Evaluator 'pruned_dtw' top-of-100 on a val batch of {LONG_EVAL_B} (the only "
           f"cut), T={LONG_T}, {LONG_NODES} nodes: {sec:.3f} s per batch, "
           f"{100 * LONG_EVAL_B * LONG_NODES / sec:.0f} decoded frames/s; K1 launches "
-          f"{launches[0]} = 15 x {n_samples} sampled forwards; eval/ "
+          f"{launches[0]} = 15 x {n_samples} sampled forwards, K4 {launches[3]}; eval/ "
           + json.dumps({k: float(f"{v:.6g}") for k, v in summary.items()}))
     del trainer
-    long_dtw(torch, tag, n_samples)
     return launches
-
-
-def long_dtw(torch, tag, n_samples):
-    """One batched_dtw_alignment at [1, 511, 500] and [16, 511, 500] on
-    random costs with mixed ends: its ms (CUDA events); at the larger its
-    device launches (torch.profiler; they do not depend on B) and a check
-    against the CPU: the same node indices, distances within 1e-5
-    relative."""
-    from video_gcp_torch.ops.dtw import batched_dtw_alignment
-
-    gen = torch.Generator("cuda").manual_seed(SEED)
-    for b in (LONG_EVAL_B, TRAIN_B):
-        cost = torch.rand(b, LONG_NODES, LONG_T, generator=gen, device="cuda")
-        ends = torch.tensor([LONG_T - 1, 403, 217, 5], device="cuda")[
-            torch.arange(b, device="cuda") % 4]  # mixed ends
-        ms = time_ms(torch, lambda: batched_dtw_alignment(cost, ends), reps=3, warmup=1)
-        print(f"{tag}: batched_dtw_alignment at [{b}, {LONG_NODES}, {LONG_T}]: {ms:.2f} ms "
-              f"(CUDA events, median of 3); x {n_samples} a batch of the Evaluator")
-    per_call = kernels_per_call(torch, lambda: batched_dtw_alignment(cost, ends), reps=1)
-    print(f"{tag}: batched_dtw_alignment: {per_call:g} device kernels a call (torch.profiler)")
-    inds, dist = batched_dtw_alignment(cost, ends)
-    inds_cpu, dist_cpu = batched_dtw_alignment(cost.cpu(), ends.cpu())
-    dist_d = ((dist.cpu() - dist_cpu).abs() / dist_cpu.abs().clamp(min=1e-30)).max().item()
-    if not torch.equal(inds.cpu(), inds_cpu) or not dist_d < 1e-5:
-        fail(f"{tag}: DTW card vs CPU at {list(cost.shape)}: node indices equal "
-             f"{torch.equal(inds.cpu(), inds_cpu)}, distances {dist_d}")
-    print(f"{tag}: batched_dtw_alignment card vs CPU at {list(cost.shape)}: the same node "
-          f"indices, distances within {dist_d:.3e} (relative)")
 
 
 def long_phase(torch, fused_gn, soft_dtw, trainer_mod, distributions, DataLoader, AttrDict,
@@ -3514,7 +3564,7 @@ def main():
     ap.add_argument("--parent", help="a checkout of an earlier commit of the port, "
                     "whose K1, K2 and K3 are timed in turns with this one's")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the K1, K2 and K3 phases (no result line)")
+                    help="stop after the K1, K2, K3 and K4 phases (no result line)")
     # the dist phase's ranks (Ranks)
     ap.add_argument("--dist-only", action="store_true",
                     help="build, then run only the dist phase (no result line)")
@@ -3541,7 +3591,7 @@ def main():
         from video_gcp_torch.core.attrdict import AttrDict
         from video_gcp_torch.data.loader import DataLoader
         from video_gcp_torch.load import load_model, set_float32_precision
-        from video_gcp_torch.ops import cuda_build, fused_gn, soft_dtw
+        from video_gcp_torch.ops import cuda_build, dtw, fused_gn, soft_dtw
         from video_gcp_torch.parallel import train_step as train_step_mod
         from video_gcp_torch.training import trainer as trainer_mod
     except ImportError as e:
@@ -3572,17 +3622,16 @@ def main():
         return out
 
     def build():
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-            builds = [pool.submit(m.load_library) for m in (fused_gn, soft_dtw)]
+        with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+            builds = [pool.submit(m.load_library) for m in (fused_gn, soft_dtw, dtw)]
             for b in builds:
                 b.result()  # raises (non-zero exit) if nvcc fails
 
     timed_phase("build", build)
-    print(f"build: K1 and K2 ({fused_gn.SOURCE}), K3 ({soft_dtw.SOURCE}) in "
-          f"{phase_s['build']:.1f} s")
-    for source in (fused_gn.SOURCE, soft_dtw.SOURCE):
+    print(f"build: K1 and K2 ({fused_gn.SOURCE}), K3 ({soft_dtw.SOURCE}), K4 ({dtw.SOURCE}) "
+          f"in {phase_s['build']:.1f} s")
+    for source in (fused_gn.SOURCE, soft_dtw.SOURCE, dtw.SOURCE):
         print(cuda_build.BUILD_LOGS.get(source, "").strip())
-
     if args.dist_only:
         from video_gcp_torch.data.datasets import RandomVideoDataset
         from video_gcp_torch.training.config import build_hparams, load_config
@@ -3624,9 +3673,10 @@ def main():
     k1_rows, k1_sums = timed_phase("k1", kernel_phase, torch, F, fused_gn, parent)
     k2_rows, k2_sums = timed_phase("k2", k2_phase, torch, F, fused_gn, parent)
     k3_rows = timed_phase("k3", k3_phase, torch, soft_dtw, parent_k3)
+    k4_rows = timed_phase("k4", k4_phase, torch, dtw)
     if args.kernels_only:
-        print(json.dumps({"k1": k1_rows, "k2": k2_rows, "k3": k3_rows, "k1_sums": k1_sums,
-                          "k2_sums": k2_sums}))
+        print(json.dumps({"k1": k1_rows, "k2": k2_rows, "k3": k3_rows, "k4": k4_rows,
+                          "k1_sums": k1_sums, "k2_sums": k2_sums}))
         print(gpu_name_and_power_limit())
         return
     COUNTS["k3.launches"] = 0  # slice_phase resets K1's and K2's counts
@@ -3729,6 +3779,9 @@ def main():
                   **{k: v[2] for k, v in long_launches.items()},
                   **{k: v[2] for k, v in dist_launches.items()}),
              source=soft_dtw.SOURCE),
+        line("dtw_align", k4_rows, list(K4_SHAPES[-1]), "float32",
+             "none (video_gcp_tpu/ops/dtw.py runs XLA scans)",
+             dict(long_eval=long_launches["long_eval"][3]), source=dtw.SOURCE),
     ]
     print(f"slice: median plan call {plan_s * 1e3:.2f} ms")
     print(json.dumps({"kernel_path_sums": {"gn_lrelu_fwd": k1_sums, "gn_lrelu_bwd": k2_sums}}))

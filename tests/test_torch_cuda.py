@@ -34,6 +34,14 @@ package, so on a machine with the card and without JAX it runs as
   them; a small adaptive train step launches K3 once and matches the CPU.
 - The evaluation DTW on the card equals the CPU's (the same D, the same
   node indices) on random and on integer-valued costs.
+- Kernel K4 (the evaluation DTW's DP, traceback and per-frame match in one
+  launch) against the CPU twin at [16, 511, 500], [16, 127, 100],
+  [4, 255, 200], [3, 499, 499], [2, 1, 7], [2, 9, 1] and, with the choices
+  in a device scratch and two bands of rows, [1, 2000, 1000]: D and the
+  node indices bit for bit, the distances equal, on random and on integer
+  costs full of ties, with ends 0 and c - 1 among them; one K4 launch a
+  call; a raise for CPU ends beside a CUDA C, a float64 C and a shape past
+  the kernel's limit; a C that is not contiguous is copied.
 - The CEM simulator's rollouts of a small GCP-tree and one closed-loop
   action of the 9-room ep74 ImageCEMPolicy, card against CPU (images 2e-4,
   latents 5e-4, actions and states 1e-4), with K1 at every norm.
@@ -452,6 +460,68 @@ def test_eval_dtw_on_card_matches_cpu(card, ties):
     inds, dist = dtw.batched_dtw_alignment(cost.to(card), ends.to(card))
     want_inds, want_dist = dtw.batched_dtw_alignment(cost, ends)
     assert torch.equal(inds.cpu(), want_inds) and torch.equal(dist.cpu(), want_dist)
+
+
+def _k4_inputs(b, r, c, ties, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    if ties:  # many equal cells and equal paths
+        cost = torch.randint(0, 3, (b, r, c), generator=gen).float()
+    else:
+        cost = torch.rand(b, r, c, generator=gen)
+    ends = torch.randint(0, c, (b,), generator=gen)
+    ends[0], ends[-1] = c - 1, 0
+    return cost, ends
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("b,r,c", [(16, 511, 500), (16, 127, 100), (4, 255, 200),
+                                   (3, 499, 499), (2, 1, 7), (2, 9, 1), (1, 2000, 1000)])
+def test_k4_matches_the_cpu_twin(card, b, r, c, ties):
+    cost, ends = _k4_inputs(b, r, c, ties)
+    assert dtw.launch_plan(r, c).shared == (r < 2000)
+    launches = COUNTS["k4.launches"]
+    inds, dist, D = dtw.k4(cost.to(card), ends.to(card), return_dp=True)
+    torch.cuda.synchronize()
+    assert COUNTS["k4.launches"] == launches + 1
+    want_inds, want_dist = dtw.alignment_reference(cost, ends)
+    assert torch.equal(D.cpu(), dtw.min_cumsum(cost))
+    assert torch.equal(inds.cpu(), want_inds)
+    assert torch.equal(dist.cpu(), want_dist)
+
+
+@pytest.mark.parametrize("r,c,shared", [(876, 929, 1), (892, 913, 0)])
+def test_k4_at_the_shared_memory_limit(card, r, c, shared):
+    """The plan that fills the opt-in limit exactly launches (the kernel has
+    no static shared memory beside it), and the next one takes the scratch."""
+    plan = dtw.launch_plan(r, c)
+    assert (plan.shared, plan.smem == dtw.SMEM_LIMIT) == (shared, bool(shared))
+    cost, ends = _k4_inputs(1, r, c, False, seed=6)
+    inds, dist, D = dtw.k4(cost.to(card), ends.to(card), return_dp=True)
+    want_inds, want_dist = dtw.alignment_reference(cost, ends)
+    assert torch.equal(D.cpu(), dtw.min_cumsum(cost))
+    assert torch.equal(inds.cpu(), want_inds) and torch.equal(dist.cpu(), want_dist)
+
+
+def test_k4_is_one_launch_a_call_and_raises_for_what_it_does_not_take(card):
+    cost, ends = _k4_inputs(3, 31, 20, False, seed=1)
+    want = dtw.batched_dtw_alignment(cost, ends)
+    launches = COUNTS["k4.launches"]
+    got = dtw.batched_dtw_alignment(cost.to(card), ends.to(card))
+    torch.cuda.synchronize()
+    assert COUNTS["k4.launches"] == launches + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    view = cost.to(card).transpose(1, 2).contiguous().transpose(1, 2)  # copied
+    assert not view.is_contiguous()
+    got = dtw.batched_dtw_alignment(view, ends.to(card))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    with pytest.raises(ValueError, match="end_inds"):
+        dtw.batched_dtw_alignment(cost.to(card), ends)
+    with pytest.raises(ValueError, match="float32"):
+        dtw.batched_dtw_alignment(cost.to(card, torch.float64), ends.to(card))
+    big = torch.zeros(1, 4, dtw.MAX_FRAMES + 1, device=card)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        dtw.batched_dtw_alignment(big, torch.zeros(1, dtype=torch.int64, device=card))
+    assert COUNTS["k4.launches"] == launches + 2
 
 
 def test_small_tree_in_bf16_on_card(card):

@@ -9,6 +9,10 @@ CPU.
   end_ind down to 0.
 - dtw_warp_sequence: node indices and warped frames equal to JAX's and to
   the numpy reference's on the same cost.
+- K4's launch plan: the choices in shared memory at the 500-frame tree's
+  [511, 500] (and the repo's other shapes), in a device scratch past 227 KB
+  of them, a raise past the kernel's limits; on a CPU tensor the twin runs
+  and no K4 launch is counted.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 from video_gcp_torch.ops import dtw as t_dtw
 from video_gcp_torch.ops.cdist import batch_cdist
+from video_gcp_torch.tracing import COUNTS
 from video_gcp_tpu.ops import dtw as j_dtw
 
 DIST_TOL = 1e-6
@@ -102,3 +107,45 @@ def test_warp_sequence_matches_jax_and_numpy():
         want = numpy_dtw(cost[k], int(end[k]))[0]
         np.testing.assert_array_equal(inds[k].numpy(), want)
         np.testing.assert_array_equal(warped[k].numpy(), est[k][want])
+
+
+@pytest.mark.parametrize("r,c,warps", [(511, 500, 8), (127, 100, 2), (255, 200, 4),
+                                       (499, 499, 8), (1, 7, 1), (9, 1, 1)])
+def test_launch_plan_keeps_the_choices_in_shared_memory(r, c, warps):
+    plan = t_dtw.launch_plan(r, c)
+    assert (plan.warps, plan.shared, plan.words) == (warps, 1, -(-c // 16))
+    assert 4 * r * plan.words < plan.smem <= t_dtw.SMEM_LIMIT
+
+
+def test_launch_plan_moves_the_choices_to_a_scratch_and_raises_past_the_limit():
+    plan = t_dtw.launch_plan(2000, 1000)  # 504 KB of choices
+    assert (plan.warps, plan.shared, plan.words) == (8, 0, 63)
+    assert plan.smem < 4 * 2000 * 63 and plan.smem <= t_dtw.SMEM_LIMIT
+    big = t_dtw.launch_plan(t_dtw.MAX_NODES, t_dtw.MAX_FRAMES)
+    assert not big.shared and big.smem <= t_dtw.SMEM_LIMIT
+    for r, c in ((t_dtw.MAX_NODES + 1, 10), (10, t_dtw.MAX_FRAMES + 1), (0, 5), (5, 0)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            t_dtw.launch_plan(r, c)
+
+
+def test_launch_plan_at_the_shared_memory_limit():
+    """Choices in shared memory up to the limit itself, the header (with the
+    path's length) counted in it, and a scratch one row or column past it."""
+    full = t_dtw.launch_plan(876, 929)
+    assert full.shared and full.smem == t_dtw.SMEM_LIMIT
+    for r, c in ((877, 929), (876, 930), (892, 913)):
+        plan = t_dtw.launch_plan(r, c)
+        assert not plan.shared and plan.smem < t_dtw.SMEM_LIMIT
+    for r in range(1, t_dtw.MAX_NODES + 1, 37):
+        for c in (1, 16, 97, 500, 929, t_dtw.MAX_FRAMES):
+            assert t_dtw.launch_plan(r, c).smem <= t_dtw.SMEM_LIMIT
+
+
+def test_cpu_tensors_take_the_twin():
+    """On a CPU tensor no kernel launches: "k4.launches" counts card launches."""
+    C, end = _costs(3, (2, 9, 6), False), _ends(3, 2, 6)
+    before = COUNTS["k4.launches"]
+    inds, dist = t_dtw.batched_dtw_alignment(torch.from_numpy(C), torch.from_numpy(end))
+    want = t_dtw.alignment_reference(torch.from_numpy(C), torch.from_numpy(end))
+    assert COUNTS["k4.launches"] == before
+    assert torch.equal(inds, want[0]) and torch.equal(dist, want[1])

@@ -8,22 +8,49 @@ D[i-1, j], D[i, j-1]), ties broken in that order; each frame (column) takes
 the path cell of least accumulated cost, the smaller node index on a tie;
 frames past end_ind repeat the last valid frame's match.
 
-The reference runs this as XLA scans, not as a Pallas kernel, so it is
-plain torch here. The DP walks the r + c - 1 anti-diagonals of the interior,
-one step over the batch and the diagonal's cells each, and computes every
-cell as the JAX scan does, C + min(diag, min(up, left)): D is the same bit
-for bit. The traceback is r + c batched steps that follow the argmin and
-record the path; the per-column choice is then one scatter-min over it.
+The reference runs this as XLA scans, not as a Pallas kernel. On a CUDA
+tensor `batched_dtw_alignment` is kernel K4 (`video_gcp_torch/csrc/
+dtw_align.cu`: the DP, the traceback and each frame's node in one launch,
+built with nvcc at first use and bound with ctypes; `launch_plan` chooses
+its launch shape); it launches K4 or raises. On a CPU tensor it runs the
+plain twin `alignment_reference`. The twin's DP walks the r + c - 1
+anti-diagonals of the interior, one step over the batch and the diagonal's
+cells each, and computes every cell as the JAX scan does,
+C + min(diag, min(up, left)): D is the same bit for bit. Its traceback is
+r + c batched steps that follow the argmin and record the path; the
+per-column choice is then one scatter-min over it. K4 computes each cell
+with the same float32 addition and takes the same argmin, so its D, node
+indices and distances equal the twin's bit for bit.
+
+K4's bound: B * r * c * 4 + B * c * 8 bytes (read C once, write the
+matches), 4.9 us at [16, 511, 500] and 3.35 TB/s; its chain of r + c - 1
+dependent DP steps and up to as many traceback steps keeps it far above
+that (see the source).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from dataclasses import astuple, dataclass
 from typing import List, Tuple
 
 import torch
 
 from video_gcp_torch import tracing
+from video_gcp_torch.ops import cuda_build
 from video_gcp_torch.ops.cdist import batch_cdist
+
+SOURCE = "dtw_align.cu"
+MAX_NODES = 8192  # r the kernel takes (kMaxNodes)
+MAX_FRAMES = 4096  # c the kernel takes (kMaxFrames)
+
+# Launch plan limits (H100 SXM; the csrc constants in brackets)
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use
+ROWS_PER_LANE = 2  # kRowsPerLane
+MAX_WARPS = 8  # kMaxWarps: a band of at most 512 rows
+CELLS_PER_WORD = 16  # 2-bit choices in a 32-bit word
+
+_lib = None
 
 
 @functools.lru_cache(maxsize=16)
@@ -55,16 +82,9 @@ def min_cumsum(C: torch.Tensor) -> torch.Tensor:
     return D.reshape(b, r + 1, c + 1)
 
 
-@tracing.spanned("dtw")
-def batched_dtw_alignment(C: torch.Tensor, end_inds: torch.Tensor):
-    """DTW, traceback and per-frame best node, batched.
-
-    :param C: [B, n_nodes, T] cost between df-ordered nodes and GT frames.
-    :param end_inds: [B] last valid GT frame per example.
-    :return: (inds [B, T] int64, for each GT frame the node whose path cell
-        costs least, frames past end_ind repeating the last valid match;
-        dist [B], the normalized DTW distance D[r, end+1] / (r + end + 1)).
-    """
+def alignment_reference(C: torch.Tensor, end_inds: torch.Tensor):
+    """Plain PyTorch twin of K4: `batched_dtw_alignment` as batched torch
+    steps (module docstring), on any device."""
     b, r, c = C.shape
     cw = c + 1
     with tracing.span("dtw.dp"):
@@ -106,6 +126,112 @@ def batched_dtw_alignment(C: torch.Tensor, end_inds: torch.Tensor):
         t_idx = torch.arange(c, device=C.device)[None, :]
         inds = best_node.gather(1, torch.minimum(t_idx, end[:, None]))
     return inds, dist
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How K4 covers one [r, c] matrix: a block of `warps` warps, each lane
+    ROWS_PER_LANE rows of a band; `shared`: the cells' choices in shared
+    memory (else in a device scratch), `words` 32-bit words of them a row;
+    `smem` bytes of dynamic shared memory."""
+    warps: int
+    shared: int
+    words: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(r: int, c: int) -> LaunchPlan:
+    """The launch shape of K4 for [B, r, c] float32 costs. Raises ValueError
+    outside 1 <= r <= MAX_NODES, 1 <= c <= MAX_FRAMES."""
+    if not (0 < r <= MAX_NODES and 0 < c <= MAX_FRAMES):
+        raise ValueError(f"dtw: {r} nodes x {c} frames; the kernel takes 1..{MAX_NODES} "
+                         f"nodes and 1..{MAX_FRAMES} frames")
+    warps = min(MAX_WARPS, -(-r // (32 * ROWS_PER_LANE)))
+    words = -(-c // CELLS_PER_WORD)
+    # the warps' edge exchange and the path's length, two rows of D, the
+    # path and its costs, a node a column (header_bytes in the csrc)
+    header = (_align16(2 * MAX_WARPS * 4 + 4) + _align16(8 * (c + 1))
+              + 2 * _align16(4 * (r + c)) + _align16(4 * c))
+    choices = 4 * r * words
+    if header + choices <= SMEM_LIMIT:
+        return LaunchPlan(warps, 1, words, header + choices)
+    return LaunchPlan(warps, 0, words, header)
+
+
+@functools.lru_cache(maxsize=None)
+def _c_plan(plan: LaunchPlan):
+    return (ctypes.c_int * 4)(*astuple(plan))
+
+
+def load_library():
+    """Build (at first use) and bind K4's shared library."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
+        lib.dtw_align_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.dtw_align_f32.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def k4(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
+    """K4 on a CUDA tensor: (inds, dist) of `batched_dtw_alignment` for C
+    [B, r, c] float32 and end_inds [B] on C's card, or (inds, dist, D) with
+    `return_dp` (D [B, r+1, c+1], as `min_cumsum` gives it). A C that is not
+    contiguous is copied; integer end_inds other than int64 are cast. Each
+    launch counts under `tracing.COUNTS["k4.launches"]`."""
+    if C.device.type != "cuda":
+        raise ValueError(f"dtw: no kernel for {C.device}")
+    if C.dtype != torch.float32 or C.dim() != 3:
+        raise ValueError(f"dtw: need float32 [B, r, c], got {C.dtype} {tuple(C.shape)}")
+    b, r, c = C.shape
+    if (end_inds.shape != (b,) or end_inds.device != C.device
+            or end_inds.dtype.is_floating_point or end_inds.dtype == torch.bool):
+        raise ValueError(f"dtw: end_inds must be integers [{b}] on {C.device}, got "
+                         f"{end_inds.dtype} {tuple(end_inds.shape)} on {end_inds.device}")
+    plan = launch_plan(r, c)
+    C = C.contiguous()
+    end_inds = end_inds.to(torch.int64)
+    inds = torch.empty((b, c), dtype=torch.int64, device=C.device)
+    dist = torch.empty((b,), dtype=torch.float32, device=C.device)
+    scratch = (None if plan.shared else
+               torch.empty((b, r, plan.words), dtype=torch.int32, device=C.device))
+    dp = (torch.empty((b, r + 1, c + 1), dtype=torch.float32, device=C.device)
+          if return_dp else None)
+    if b:
+        with cuda_build.on_device(C):
+            err = load_library().dtw_align_f32(
+                C.data_ptr(), end_inds.data_ptr(), inds.data_ptr(), dist.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                None if dp is None else dp.data_ptr(), b, r, c, _c_plan(plan),
+                cuda_build.stream(C))
+        if err != 0:
+            raise RuntimeError(f"dtw_align launch failed: CUDA error {err}")
+        tracing.count("k4.launches")
+    return (inds, dist, dp) if return_dp else (inds, dist)
+
+
+@tracing.spanned("dtw")
+def batched_dtw_alignment(C: torch.Tensor, end_inds: torch.Tensor):
+    """DTW, traceback and per-frame best node, batched: K4 on a CUDA
+    tensor (which raises for what it does not take), the twin
+    `alignment_reference` on a CPU tensor.
+
+    :param C: [B, n_nodes, T] cost between df-ordered nodes and GT frames.
+    :param end_inds: [B] last valid GT frame per example, in [0, T).
+    :return: (inds [B, T] int64, for each GT frame the node whose path cell
+        costs least, frames past end_ind repeating the last valid match;
+        dist [B], the normalized DTW distance D[r, end+1] / (r + end + 1)).
+    """
+    if C.device.type == "cpu":
+        return alignment_reference(C, end_inds)
+    return k4(C, end_inds)
 
 
 def dtw_warp_sequence(estimates: torch.Tensor, targets: torch.Tensor,

@@ -64,7 +64,7 @@ UNITS = ("train_step", "eval.call", "plan.request")
 # "to_host.bytes.<site>".
 HOST_SITES = ("eval.metrics", "eval.rand_seqs", "eval.best_gen", "eval.best_full",
               "eval.gt_seq", "eval.end_ind", "sim.outputs", "cost.result")
-COUNTERS = ("k1.launches", "k2.launches", "k2.dy_copies", "k3.launches",
+COUNTERS = ("k1.launches", "k2.launches", "k2.dy_copies", "k3.launches", "k4.launches",
             "to_host.copies", "to_host.bytes",
             *(f"to_host.bytes.{site}" for site in HOST_SITES))
 
