@@ -694,3 +694,173 @@ def test_trainer_on_an_h5_dataset_on_card(card, model, tmp_path, monkeypatch):
     assert trainer.step == 2, trainer.step
     assert counted == (32, 32) and seen == counted, (counted, seen,
                                                      [e.key for e in kernels][:40])
+
+
+# ---------------------------------------------------------------------------
+# The VRNN's rollout as CUDA graphs (models/rollout_graph.py)
+# ---------------------------------------------------------------------------
+
+VRNN_SMALL = dict(batch_size=2, max_seq_len=12, img_sz=16, ngf=4, nz_mid_lstm=32,
+                  n_lstm_layers=2, nz_mid=32, nz_enc=32, nz_vae=8,
+                  one_step_planner="continuous", dense_rec_type="svg", hierarchy_levels=0,
+                  decoder_distribution="gaussian")
+VRNN_VARIANTS = {"lstm": {},
+                 "act_cond_conv_lstm": dict(action_conditioned_pred=True, use_conv_lstm=True,
+                                            n_actions=2)}
+GRAPH_COUNTERS = ("rollout.graph_captures", "rollout.graph_replays")
+OUT_TOL, GRAD_TOL = 1e-6, 1e-5  # of each tensor's largest
+
+
+def _vrnn(card, variant):
+    from video_gcp_torch.models.sequential import SequentialModel
+    hp = default_hparams()
+    hp.overwrite(VRNN_SMALL)
+    hp.overwrite(VRNN_VARIANTS[variant])
+    torch.manual_seed(0)
+    return SequentialModel(dict(hp)).to(card)
+
+
+def _vrnn_inputs(model, card, b=2):
+    """(state, x, context, x_primes, more, z) of a rollout, as CPU tensors."""
+    from video_gcp_torch.models.nets import lstm_state_size
+    hp, g = model.hp, torch.Generator().manual_seed(1)
+    nz, t = hp["nz_enc"], hp["max_seq_len"]
+    e_0, e_g = (torch.randn(b, nz, generator=g) for _ in range(2))
+    more = torch.randn(b, t - 1, nz, generator=g) if hp["action_conditioned_pred"] else None
+    return [torch.randn(b, lstm_state_size(hp), generator=g), e_0, torch.cat([e_0, e_g], -1),
+            torch.randn(b, t, nz, generator=g), more, None]
+
+
+def _graph_counts():
+    return tuple(COUNTS[k] for k in GRAPH_COUNTERS)
+
+
+class _Rollout:
+    """One rollout of `model` from `inputs` (fresh leaves on the card) and
+    the noise of a generator seeded 0, through the model's graphs or, with
+    `eager`, through the loop itself; `backward()` then takes a fixed
+    weighted sum of its outputs back to the inputs and the cell."""
+
+    def __init__(self, model, inputs, card, eager=False, mode="posterior"):
+        self.model = model
+        self.leaves = [None if t is None else t.to(card, copy=True).requires_grad_()
+                       for t in inputs]
+        self.gen = torch.Generator(card).manual_seed(0)
+        run = model.rollout if eager else model.rollout_graph
+        if eager:
+            self.outputs = run(*self.leaves, eps=None, mode=mode, generator=self.gen)
+        else:
+            self.outputs = run(model.rollout, self.leaves, model.cell, mode, self.gen)
+        self.gen_state = self.gen.get_state()
+
+    def backward(self):
+        g = torch.Generator().manual_seed(2)
+        self.model.zero_grad(set_to_none=True)
+        sum((o * torch.randn(o.shape, generator=g).to(o.device)).sum()
+            for o in self.outputs).backward()
+        return dict(outputs=[o.detach().clone() for o in self.outputs],
+                    inputs=[t.grad.clone() for t in self.leaves if t is not None],
+                    params={n: p.grad.clone() for n, p in self.model.cell.named_parameters()
+                            if p.grad is not None})
+
+
+def _assert_same(got, want):
+    for kind, tol in (("outputs", OUT_TOL), ("inputs", GRAD_TOL)):
+        assert len(got[kind]) == len(want[kind])
+        for k, (a, b) in enumerate(zip(got[kind], want[kind])):
+            scale = max(b.abs().max().item(), 1e-30)
+            assert (a - b).abs().max().item() <= tol * scale, (kind, k)
+    assert got["params"].keys() == want["params"].keys()
+    for name, b in want["params"].items():
+        scale = max(b.abs().max().item(), 1e-30)
+        assert (got["params"][name] - b).abs().max().item() <= GRAD_TOL * scale, name
+
+
+@pytest.mark.parametrize("variant", list(VRNN_VARIANTS))
+def test_rollout_graph_warms_up_captures_and_replays_the_eager_rollout(card, variant):
+    model = _vrnn(card, variant)
+    inputs = _vrnn_inputs(model, card)
+    want = _Rollout(model, inputs, card, eager=True)
+    eager_state, eager = want.gen_state, want.backward()
+    before = _graph_counts()
+    for k in range(3):  # warm-up (eager), capture and replay, replay
+        got = _Rollout(model, inputs, card)
+        assert torch.equal(got.gen_state, eager_state), k
+        _assert_same(got.backward(), eager)
+        assert tuple(a - b for a, b in zip(_graph_counts(), before)) == (
+            (0, 0), (1, 1), (1, 2))[k]
+
+
+@pytest.mark.parametrize("variant", list(VRNN_VARIANTS))
+def test_rollout_graph_runs_eager_where_a_replay_would_be_wrong(card, variant):
+    model = _vrnn(card, variant)
+    inputs = _vrnn_inputs(model, card)
+
+    def eager():
+        return _Rollout(model, inputs, card, eager=True).backward()
+
+    def counted(expected_delta, run):
+        before = _graph_counts()
+        out = run()
+        assert tuple(a - b for a, b in zip(_graph_counts(), before)) == expected_delta
+        return out
+
+    _Rollout(model, inputs, card).backward()  # warm-up
+    # a second forward before the first one's backward runs eager
+    first = counted((1, 1), lambda: _Rollout(model, inputs, card))
+    second = counted((0, 0), lambda: _Rollout(model, inputs, card))
+    _assert_same(second.backward(), eager())
+    _assert_same(first.backward(), eager())
+    counted((0, 1), lambda: _assert_same(_Rollout(model, inputs, card).backward(), eager()))
+    # another batch size: one eager call, then a new capture
+    wider = _vrnn_inputs(model, card, b=3)
+    want = _Rollout(model, wider, card, eager=True).backward()
+    for delta in ((0, 0), (1, 1), (0, 1)):
+        counted(delta, lambda: _assert_same(_Rollout(model, wider, card).backward(), want))
+    # an optimizer step in place between calls: the replay reads the new weights
+    opt = torch.optim.SGD(model.cell.parameters(), lr=0.1)
+    _Rollout(model, wider, card).backward()
+    opt.step()
+    counted((0, 1), lambda: _assert_same(_Rollout(model, wider, card).backward(),
+                                         _Rollout(model, wider, card, eager=True).backward()))
+    # a parameter in new storage: a new key, so eager, then a capture
+    weight = next(p for p in model.cell.parameters() if p.requires_grad)
+    weight.data = weight.data.clone()
+    for delta in ((0, 0), (1, 1)):
+        counted(delta, lambda: _assert_same(_Rollout(model, wider, card).backward(),
+                                            _Rollout(model, wider, card, eager=True)
+                                            .backward()))
+
+
+def test_train_steps_through_the_rollout_graph_match_eager_steps(card):
+    """Three train steps of a small VRNN, the second capturing and the
+    third replaying, against three steps of the same model that each start
+    from empty graphs (every rollout eager): losses within 1e-5, parameters
+    within 1e-5 of each one's largest."""
+    from video_gcp_torch.models.rollout_graph import RolloutGraph
+    graphed, eager = _vrnn(card, "lstm"), _vrnn(card, "lstm")
+    rng = np.random.RandomState(0)
+    t = VRNN_SMALL["max_seq_len"]
+    seq = torch.from_numpy((rng.rand(2, t, 16, 16, 3) * 2 - 1).astype(np.float32))
+    batch = AttrDict(traj_seq=seq, I_0=seq[:, 0], I_g=seq[:, -1],
+                     end_ind=torch.tensor([t - 1, 7]), pad_mask=torch.ones(2, t))
+    batch = AttrDict({k: v.to(card) for k, v in batch.items()})
+    runs = {}
+    before = _graph_counts()
+    for name, model in (("graphed", graphed), ("eager", eager)):
+        opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam")
+        gen = torch.Generator(card).manual_seed(0)
+        totals = []
+        for step in range(3):
+            if name == "eager":
+                model.rollout_graph = RolloutGraph()
+            totals.append(train_step(model, opt, batch, step, gen).total.item())
+        runs[name] = totals
+        if name == "graphed":
+            assert tuple(a - b for a, b in zip(_graph_counts(), before)) == (1, 2)
+    for a, b in zip(runs["graphed"], runs["eager"]):
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b))
+    want = dict(eager.named_parameters())
+    for name, p in graphed.named_parameters():
+        scale = max(want[name].abs().max().item(), 1e-30)
+        assert (p - want[name]).abs().max().item() <= 1e-5 * scale, name

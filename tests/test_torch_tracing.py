@@ -128,6 +128,7 @@ def test_every_name_used_in_the_package_is_declared():
     assert used["site"] <= set(tracing.HOST_SITES), used["site"] - set(tracing.HOST_SITES)
     assert set(tracing.SPANS) <= used["span"], set(tracing.SPANS) - used["span"]
     assert set(tracing.HOST_SITES) <= used["site"]
+    assert {"rollout.steps", "rollout.graph_captures", "rollout.graph_replays"} <= used["count"]
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
     assert set(tracing.UNITS) <= set(tracing.SPANS)
 
