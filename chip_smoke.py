@@ -304,10 +304,9 @@ a host without CUDA or a directory without the port.
 also builds the K1, K2 and K3 of another checkout of the port in DIR (an
 earlier commit unpacked with `git archive` under video_gcp_torch/_build/)
 and times them in turns with this checkout's at every shape of phases 2 to 4
-(new, old, old, new); for K3 it times the whole soft_dtw() calls (the
-parent's: dp_rows, its K3 and posterior) and checks that this checkout's F
-and Bk equal the parent's DP values bit for bit and w is within 1e-6 of the
-parent's. K4 has no parent kernel: phase 4b times it beside its twin.
+(new, old, old, new); for K3 it times the whole soft_dtw() calls and
+checks that this checkout's F and Bk equal the parent K3's bit for bit and
+w is within 1e-6 of the parent's. K4 has no parent kernel: phase 4b times it beside its twin.
 --kernels-only stops after phases 2 to 4b and prints their rows as JSON.
 
     python3 chip_smoke.py --room25-only
@@ -330,6 +329,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -341,6 +341,8 @@ from pathlib import Path
 
 import numpy as np
 
+from gcpbench import yardstick
+from gcpbench.yardstick import F32_FLOPS_PER_S, HBM_BYTES_PER_S
 from video_gcp_torch import tracing
 from video_gcp_torch.tracing import COUNTS
 
@@ -350,9 +352,6 @@ CONF = ROOT / "experiments/prediction/9room/gcp_tree"
 WEIGHTS = CONF / "pretrained_ep74.npz"
 ADAPTIVE_CONF = ROOT / "experiments/prediction/9room/gcp_adaptive"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-GN_FLOPS_PER_ELEMENT = 10  # sum, square-sum, normalize, affine, activation
 TOLS_KERNEL = {"float32": 2e-5, "bfloat16": 3e-2}  # bf16: relative to max(1, |y|)
 TOLS_SLICE = dict(images=2e-4, e_g_prime=5e-4, timeline_images=2e-4,
                   timeline_latents=5e-4, actions=1e-4, regressed_state=1e-4,
@@ -376,7 +375,6 @@ K2_SHAPES = ([((b,) + s, d) for d in ("float32", "bfloat16")
              + [((SEQ_DEC_BATCH,) + s, "float32") for s in DEC_SITES]
              + [((TRAIN_B * N_NODES, 64, 64, 16), "bfloat16"),  # bench.py's train
                 ((TRAIN_B * TRAIN_T, 32, 32, 16), "bfloat16")])  # step at 64x64
-K2_FLOPS_PER_ELEMENT = 20  # three passes: stats, sums, dx
 TOLS_TRAIN = dict(loss=1e-4, grad=2e-3)  # tests/test_torch_train.py, ep74
 # bf16 card vs CPU. The heads round their outputs to bf16 (2^-8 relative)
 # before the f32 losses, and the two devices may round to neighbouring
@@ -392,7 +390,7 @@ K3_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (TRAIN_B, 511, 500)]
 # adds) and w (three adds, maximum, exp, two compares, select)
 K3_OPS_PER_CELL = 26
 TOL_K3 = 1e-4  # w absolute (tests/test_torch_soft_dtw.py); D relative to max(1, |D|)
-TOL_K3_PARENT = 1e-6  # w against the earlier checkout's K3 and torch posterior
+TOL_K3_PARENT = 1e-6  # w against the earlier checkout's K3
 # K4: [B, r, c] of the 9-room tree's 'dtw' evaluation and of the 500-frame
 # tree's 'pruned_dtw' evaluation (one example, and the benchmark's batch)
 K4_SHAPES = [(TRAIN_B, N_NODES, TRAIN_T), (1, 511, 500), (TRAIN_B, 511, 500)]
@@ -653,23 +651,19 @@ def in_turns(torch, new, old, reps=25):
 
 
 def load_parent(parent, cuda_build, name):
-    """The wrapper module `name` (fused_gn or soft_dtw) and its kernels of
-    another checkout of the port (an earlier commit unpacked under
-    video_gcp_torch/_build/), built from its own source, for times taken in
-    turns with this one."""
+    """The wrapper module `name` (fused_gn or soft_dtw) of another checkout
+    of the port (an earlier commit unpacked under video_gcp_torch/_build/),
+    for times taken in turns with this one. Its SOURCE becomes the absolute
+    path of that checkout's source, so that cuda_build builds and loads the
+    kernels from it (here, ahead of the first launch)."""
     import importlib.util
-    import types
     spec = importlib.util.spec_from_file_location(
         f"parent_{name}", parent / f"video_gcp_torch/ops/{name}.py")
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod  # a dataclass looks its module up there
     spec.loader.exec_module(mod)
-    lib = ROOT / f"video_gcp_torch/_build/parent_{name}.so"
-    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                    str(parent / f"video_gcp_torch/csrc/{name}.cu")],
-                   check=True, capture_output=True, text=True)
-    mod.cuda_build = types.SimpleNamespace(build=lambda source: lib)
-    mod.load_library()
+    mod.SOURCE = str(parent / "video_gcp_torch/csrc" / mod.SOURCE)
+    cuda_build.build(mod.SOURCE)
     return mod
 
 
@@ -718,13 +712,10 @@ def path_sums(tag, rows, keys, paths):
     return out
 
 
-def bound(shape, itemsize):
-    numel = 1
-    for s in shape:
-        numel *= s
-    t_bytes = (2 * numel * itemsize + 2 * shape[-1] * 4) / HBM_BYTES_PER_S
-    t_ops = GN_FLOPS_PER_ELEMENT * numel / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def bound_by(bound_s, flops):
+    """A bound of gcpbench.yardstick in ms, and what sets it: the kernel's
+    `flops` when they take that long, else its bytes."""
+    return bound_s * 1e3, "operations" if flops / F32_FLOPS_PER_S >= bound_s else "bytes"
 
 
 def dist_kernel_shapes(torch):
@@ -820,7 +811,9 @@ def kernel_phase(torch, F, fused_gn, parent=None):
             row["library_ms"] = time_ms(torch, lambda: F.leaky_relu(
                 F.group_norm(x_nchw, groups, scale.to(dt), bias.to(dt), eps=1e-6), 0.2))
         t4 = time.perf_counter()
-        row["bound_ms"], row["bound_by"] = bound(shape, x.element_size())
+        row["bound_ms"], row["bound_by"] = bound_by(
+            yardstick.k1_bound_s(shape, x.element_size()),
+            yardstick.GN_FLOPS_PER_ELEMENT * math.prod(shape))
         row["max_abs_err"] = max_err
         rows.append(row)
         del x, x_nchw
@@ -849,15 +842,6 @@ def kernel_phase(torch, F, fused_gn, parent=None):
           f"F.group_norm at the {len(K1_COMPARED)} top shapes only; seconds by part "
           + json.dumps({k: round(v, 2) for k, v in part_s.items()}))
     return rows, sums
-
-
-def bwd_bound(shape, itemsize):
-    numel = 1
-    for s in shape:
-        numel *= s
-    t_bytes = (3 * numel * itemsize + 4 * shape[-1] * 4) / HBM_BYTES_PER_S
-    t_ops = K2_FLOPS_PER_ELEMENT * numel / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def k2_phase(torch, F, fused_gn, parent=None):
@@ -919,7 +903,9 @@ def k2_phase(torch, F, fused_gn, parent=None):
         dyl = dy.permute(0, 3, 1, 2)
         row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             yl, (xl, wl, bl), dyl, retain_graph=True))
-        row["bound_ms"], row["bound_by"] = bwd_bound(shape, x.element_size())
+        row["bound_ms"], row["bound_by"] = bound_by(
+            yardstick.k2_bound_s(shape, x.element_size()),
+            yardstick.K2_FLOPS_PER_ELEMENT * math.prod(shape))
         row["max_abs_err"], row["errs"] = abs_err, errs
         rows.append(row)
         del x, dy, xl, wl, bl, yl, dyl
@@ -951,14 +937,11 @@ def k3_bound(b, r, c):
 
 
 def k3_parent_check(torch, parent, cost, ends, got):
-    """This checkout's F, Bk and w against the earlier checkout's K3 (on
-    dp_rows' 2B rows) and torch posterior: the DP values bit for bit."""
-    b = cost.shape[0]
-    comb, begin = parent.dp_rows(cost, ends)
-    acc = parent.gak(comb, begin)
-    w_old = parent.posterior(acc, comb, ends)
+    """This checkout's F, Bk and w against the earlier checkout's K3: the DP
+    values bit for bit."""
+    w_old, f_old, bk_old = parent.k3(cost, ends, return_dp=True)
     torch.cuda.synchronize()
-    same = (torch.equal(got[1], acc[:b]), torch.equal(got[2], torch.flip(acc[b:], (-1, -2))))
+    same = (torch.equal(got[1], f_old), torch.equal(got[2], bk_old))
     w_err = (got[0] - w_old).abs().max().item()
     if not all(same) or not w_err < TOL_K3_PARENT:
         fail(f"K3 at {list(cost.shape)} against the parent: F, Bk bitwise equal {same}, "
@@ -1007,10 +990,8 @@ def k3_phase(torch, soft_dtw, parent=None):
                 torch, parent, cost, ends, soft_dtw.k3(cost, ends, return_dp=True))
             old = lambda: parent.soft_dtw(cost, ends)  # noqa: E731
             row["call_ms"], row["parent_call_ms"] = in_turns(torch, call, old)
-            comb, begin = parent.dp_rows(cost, ends)
             row["parent_kernel_device_ms"] = device_ms(
-                torch, lambda: parent.gak(comb, begin), ("gak_kernel",))
-            del comb, begin
+                torch, lambda: parent.k3(cost, ends), K3_TAGS)
             row["parent_device_ms"] = device_ms(torch, old, None)
             row["parent_host_us"] = host_us(torch, old)
             row["parent_kernels_per_call"] = kernels_per_call(torch, old)
@@ -1038,11 +1019,6 @@ def k3_phase(torch, soft_dtw, parent=None):
         del cost, ends, w
         torch.cuda.empty_cache()
     return rows_out
-
-
-def k4_bound(b, r, c):
-    """Read C once and write the matches (gcpbench.yardstick.dtw_bytes)."""
-    return (b * r * c * 4 + b * c * 8) / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def dtw_rows(torch, dtw, shapes, tag):
@@ -1073,7 +1049,8 @@ def dtw_rows(torch, dtw, shapes, tag):
                                   reps=3, warmup=1)
         row["host_us"] = host_us(torch, call)
         row["kernels_per_call"] = kernels_per_call(torch, call)
-        row["bound_ms"], row["bound_by"] = k4_bound(b, r, c)
+        row["bound_ms"], row["bound_by"] = (
+            yardstick.dtw_bytes(b, r, c) / HBM_BYTES_PER_S * 1e3, "bytes")
         row["chain_steps"] = r + c - 1
         rows_out.append(row)
         per_step = (row["device_ms"] or row["ms"]) * 1e3 / row["chain_steps"]
@@ -3623,7 +3600,8 @@ def main():
 
     def build():
         with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
-            builds = [pool.submit(m.load_library) for m in (fused_gn, soft_dtw, dtw)]
+            builds = [pool.submit(cuda_build.load, m.SOURCE, m.ENTRY_POINTS)
+                      for m in (fused_gn, soft_dtw, dtw)]
             for b in builds:
                 b.result()  # raises (non-zero exit) if nvcc fails
 

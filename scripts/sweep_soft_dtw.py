@@ -20,7 +20,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from video_gcp_torch.ops import soft_dtw  # noqa: E402
+from video_gcp_torch.ops import cuda_build, soft_dtw  # noqa: E402
 
 CHOICES = [(4, 8, 12), (8, 12)]
 
@@ -29,7 +29,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("sweep_soft_dtw: no CUDA device")
     print(cs.gpu_name_and_power_limit())
-    soft_dtw.load_library()
+    cuda_build.load(soft_dtw.SOURCE, soft_dtw.ENTRY_POINTS)
     gen = torch.Generator("cuda").manual_seed(2)
     for b, r, c in cs.K3_SHAPES:
         cost = torch.rand(b, r, c, generator=gen, device="cuda") * 2

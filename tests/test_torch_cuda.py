@@ -61,7 +61,7 @@ from video_gcp_torch.models.hyperparameters import default_hparams
 from video_gcp_torch.models.tree import TreeModel
 from video_gcp_torch.models import nets
 from video_gcp_torch.models.nets import ConvEncoder
-from video_gcp_torch.ops import dtw, fused_gn
+from video_gcp_torch.ops import cuda_build, dtw, fused_gn
 from video_gcp_torch.ops import soft_dtw as sdtw
 from video_gcp_torch.parallel.train_step import make_optimizer, train_step
 from video_gcp_torch.tracing import COUNTS
@@ -494,7 +494,7 @@ def test_k4_at_the_shared_memory_limit(card, r, c, shared):
     """The plan that fills the opt-in limit exactly launches (the kernel has
     no static shared memory beside it), and the next one takes the scratch."""
     plan = dtw.launch_plan(r, c)
-    assert (plan.shared, plan.smem == dtw.SMEM_LIMIT) == (shared, bool(shared))
+    assert (plan.shared, plan.smem == cuda_build.SMEM_LIMIT) == (shared, bool(shared))
     cost, ends = _k4_inputs(1, r, c, False, seed=6)
     inds, dist, D = dtw.k4(cost.to(card), ends.to(card), return_dp=True)
     want_inds, want_dist = dtw.alignment_reference(cost, ends)

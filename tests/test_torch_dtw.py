@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from video_gcp_torch.ops import cuda_build
 from video_gcp_torch.ops import dtw as t_dtw
 from video_gcp_torch.ops.cdist import batch_cdist
 from video_gcp_torch.tracing import COUNTS
@@ -114,15 +115,15 @@ def test_warp_sequence_matches_jax_and_numpy():
 def test_launch_plan_keeps_the_choices_in_shared_memory(r, c, warps):
     plan = t_dtw.launch_plan(r, c)
     assert (plan.warps, plan.shared, plan.words) == (warps, 1, -(-c // 16))
-    assert 4 * r * plan.words < plan.smem <= t_dtw.SMEM_LIMIT
+    assert 4 * r * plan.words < plan.smem <= cuda_build.SMEM_LIMIT
 
 
 def test_launch_plan_moves_the_choices_to_a_scratch_and_raises_past_the_limit():
     plan = t_dtw.launch_plan(2000, 1000)  # 504 KB of choices
     assert (plan.warps, plan.shared, plan.words) == (8, 0, 63)
-    assert plan.smem < 4 * 2000 * 63 and plan.smem <= t_dtw.SMEM_LIMIT
+    assert plan.smem < 4 * 2000 * 63 and plan.smem <= cuda_build.SMEM_LIMIT
     big = t_dtw.launch_plan(t_dtw.MAX_NODES, t_dtw.MAX_FRAMES)
-    assert not big.shared and big.smem <= t_dtw.SMEM_LIMIT
+    assert not big.shared and big.smem <= cuda_build.SMEM_LIMIT
     for r, c in ((t_dtw.MAX_NODES + 1, 10), (10, t_dtw.MAX_FRAMES + 1), (0, 5), (5, 0)):
         with pytest.raises(ValueError, match="the kernel takes"):
             t_dtw.launch_plan(r, c)
@@ -132,13 +133,13 @@ def test_launch_plan_at_the_shared_memory_limit():
     """Choices in shared memory up to the limit itself, the header (with the
     path's length) counted in it, and a scratch one row or column past it."""
     full = t_dtw.launch_plan(876, 929)
-    assert full.shared and full.smem == t_dtw.SMEM_LIMIT
+    assert full.shared and full.smem == cuda_build.SMEM_LIMIT
     for r, c in ((877, 929), (876, 930), (892, 913)):
         plan = t_dtw.launch_plan(r, c)
-        assert not plan.shared and plan.smem < t_dtw.SMEM_LIMIT
+        assert not plan.shared and plan.smem < cuda_build.SMEM_LIMIT
     for r in range(1, t_dtw.MAX_NODES + 1, 37):
         for c in (1, 16, 97, 500, 929, t_dtw.MAX_FRAMES):
-            assert t_dtw.launch_plan(r, c).smem <= t_dtw.SMEM_LIMIT
+            assert t_dtw.launch_plan(r, c).smem <= cuda_build.SMEM_LIMIT
 
 
 def test_cpu_tensors_take_the_twin():

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from video_gcp_torch.ops import cuda_build
 from video_gcp_torch.ops import soft_dtw as t_sd
 from video_gcp_torch.ops.cdist import batch_cdist, cdist
 from video_gcp_torch.tracing import COUNTS
@@ -202,7 +203,7 @@ def test_launch_plan(r, c):
         return
     plan = t_sd.launch_plan(r, c)
     cells = -(-r * c // 4) * 4
-    resident = t_sd.HEADER_BYTES + 12 * cells <= t_sd.SMEM_LIMIT
+    resident = t_sd.HEADER_BYTES + 12 * cells <= cuda_build.SMEM_LIMIT
     assert plan.resident == resident
     assert plan.cols == (4 if c <= 896 else 8 if c <= 1792 else 12)
     assert plan.warps <= t_sd.MAX_CHAIN_WARPS and plan.warps * 32 * plan.cols >= c
@@ -212,7 +213,7 @@ def test_launch_plan(r, c):
     assert plan.rows * c * 4 <= max(t_sd.CHUNK_BYTES, 16 * c)
     assert plan.vec == (r * c % 4 == 0)
     assert t_sd.launch_plan(r, c, aligned=False).vec == 0
-    assert plan.smem <= t_sd.SMEM_LIMIT
+    assert plan.smem <= cuda_build.SMEM_LIMIT
     if resident:
         assert plan.chunks <= t_sd.MAX_CHUNKS and plan.smem == t_sd.HEADER_BYTES + 12 * cells
     else:

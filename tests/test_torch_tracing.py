@@ -111,6 +111,7 @@ def test_spans_are_user_annotations_under_the_profiler():
 
 
 _USES = re.compile(r"""\b(span|spanned|grad_span|count)\(\s*["']([^"']+)["']""")
+_LAUNCH_COUNTERS = re.compile(r"""\bcounter=["']([^"']+)["']""")  # cuda_build.launch's
 _SITES = re.compile(r"""(?:to_host|\b_host)\([^()]*(?:\([^()]*\)[^()]*)*,\s*["']([^"']+)["']""")
 
 
@@ -122,13 +123,15 @@ def test_every_name_used_in_the_package_is_declared():
         text = path.read_text()
         for kind, name in _USES.findall(text):
             used["count" if kind == "count" else "span"].add(name)
+        used["count"].update(_LAUNCH_COUNTERS.findall(text))
         used["site"].update(_SITES.findall(text))
     assert used["span"] <= set(tracing.SPANS), used["span"] - set(tracing.SPANS)
     assert used["count"] <= set(tracing.COUNTERS), used["count"] - set(tracing.COUNTERS)
     assert used["site"] <= set(tracing.HOST_SITES), used["site"] - set(tracing.HOST_SITES)
     assert set(tracing.SPANS) <= used["span"], set(tracing.SPANS) - used["span"]
     assert set(tracing.HOST_SITES) <= used["site"]
-    assert {"rollout.steps", "rollout.graph_captures", "rollout.graph_replays"} <= used["count"]
+    assert {"rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
+            "k1.launches", "k2.launches", "k3.launches", "k4.launches"} <= used["count"]
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
     assert set(tracing.UNITS) <= set(tracing.SPANS)
 
@@ -193,5 +196,4 @@ def test_dtw_is_the_same_with_tracing_on():
     with tracing.session() as s:
         inds_on, dist_on = batched_dtw_alignment(C, end)
     assert torch.equal(inds, inds_on) and torch.equal(dist, dist_on)
-    assert [r.name for r in s.records] == ["dtw", "dtw.dp", "dtw.traceback", "dtw.match"]
-    assert all(r.parent is s.records[0] for r in s.records[1:])
+    assert [r.name for r in s.records] == ["dtw"]

@@ -72,6 +72,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kRowsPerLane = 2;  // V
@@ -80,8 +82,6 @@ constexpr int kMaxWarps = 8;  // a band of at most 512 rows
 constexpr int kMaxNodes = 8192;  // r; a path cell packs (node << 16 | frame)
 constexpr int kMaxFrames = 4096;  // c
 constexpr int kCellsPerWord = 16;  // 2-bit choices in a 32-bit word
-constexpr int kSmemLimit = 232448;
-constexpr int kMaxDevices = 64;  // cards one process can launch on
 constexpr unsigned kFull = 0xffffffffu;
 
 // plan: {warps, shared, words, smem}
@@ -281,19 +281,8 @@ template <bool kSharedChoices, bool kDp>
 int launch(const float* C, const int64_t* ends, int64_t* inds, float* dist, uint32_t* scratch,
            float* dp, int b, int r, int c, int warps, int words, int smem,
            cudaStream_t stream) {
-  auto kernel = dtw_align_kernel<kSharedChoices, kDp>;
-  {  // the attribute is the device's: one cache per instance and device
-    static int smem_allowed[kMaxDevices] = {};  // 0: the default 48 KiB
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    if (smem > (smem_allowed[dev] ? smem_allowed[dev] : 48 * 1024)) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      smem_allowed[dev] = smem;
-    }
-  }
+  constexpr auto kernel = dtw_align_kernel<kSharedChoices, kDp>;
+  if (const int e = allow_smem<kernel>(smem)) return e;
   kernel<<<b, warps * 32, smem, stream>>>(C, ends, inds, dist, scratch, dp, r, c, words);
   return static_cast<int>(cudaGetLastError());
 }

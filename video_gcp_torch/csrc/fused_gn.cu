@@ -61,12 +61,13 @@
 
 #include <initializer_list>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 512;
-constexpr int kMaxDevices = 64;  // cards one process can launch on
 constexpr int kMaxGroups = 8;
 constexpr int kMaxCluster = 8;
 
@@ -539,19 +540,8 @@ int launch(const void* x, const void* dy, const void* scale, const void* bias,
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (ctas == 0) return 0;
 
-  auto kernel = kBwd ? gn_lrelu_bwd_kernel<T, V> : gn_lrelu_fwd_kernel<T, V>;
-  {  // the attribute is the device's: one cache per instance and device
-    static int smem_allowed[kMaxDevices] = {};  // 0: the default 48 KiB
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    if (smem > (smem_allowed[dev] ? smem_allowed[dev] : 48 * 1024)) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      smem_allowed[dev] = smem;
-    }
-  }
+  constexpr auto kernel = kBwd ? gn_lrelu_bwd_kernel<T, V> : gn_lrelu_fwd_kernel<T, V>;
+  if (const int e = allow_smem<kernel>(smem)) return e;
   if (cluster == 1) {  // a plain launch: no cluster to set up
     kernel<<<static_cast<unsigned>(ctas), threads, smem,
              static_cast<cudaStream_t>(stream)>>>(

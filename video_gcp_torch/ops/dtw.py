@@ -11,7 +11,7 @@ frames past end_ind repeat the last valid frame's match.
 The reference runs this as XLA scans, not as a Pallas kernel. On a CUDA
 tensor `batched_dtw_alignment` is kernel K4 (`video_gcp_torch/csrc/
 dtw_align.cu`: the DP, the traceback and each frame's node in one launch,
-built with nvcc at first use and bound with ctypes; `launch_plan` chooses
+built, bound and launched through `ops/cuda_build.py`; `launch_plan` chooses
 its launch shape); it launches K4 or raises. On a CPU tensor it runs the
 plain twin `alignment_reference`. The twin's DP walks the r + c - 1
 anti-diagonals of the interior, one step over the batch and the diagonal's
@@ -29,9 +29,9 @@ that (see the source).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-from dataclasses import astuple, dataclass
+from ctypes import c_int, c_void_p
+from dataclasses import dataclass
 from typing import List, Tuple
 
 import torch
@@ -45,12 +45,12 @@ MAX_NODES = 8192  # r the kernel takes (kMaxNodes)
 MAX_FRAMES = 4096  # c the kernel takes (kMaxFrames)
 
 # Launch plan limits (H100 SXM; the csrc constants in brackets)
-SMEM_LIMIT = 232448  # dynamic shared memory a block may use
 ROWS_PER_LANE = 2  # kRowsPerLane
 MAX_WARPS = 8  # kMaxWarps: a band of at most 512 rows
 CELLS_PER_WORD = 16  # 2-bit choices in a 32-bit word
 
-_lib = None
+# the arguments before the stream: C, ends, inds, dist, scratch, dp; b, r, c; plan
+ENTRY_POINTS = {"dtw_align_f32": (c_void_p,) * 6 + (c_int,) * 3 + (c_void_p,)}
 
 
 @functools.lru_cache(maxsize=16)
@@ -82,13 +82,13 @@ def min_cumsum(C: torch.Tensor) -> torch.Tensor:
     return D.reshape(b, r + 1, c + 1)
 
 
-def alignment_reference(C: torch.Tensor, end_inds: torch.Tensor):
+def alignment_reference(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
     """Plain PyTorch twin of K4: `batched_dtw_alignment` as batched torch
-    steps (module docstring), on any device."""
+    steps (module docstring), on any device; with `return_dp` also D, as
+    `min_cumsum` gives it."""
     b, r, c = C.shape
     cw = c + 1
-    with tracing.span("dtw.dp"):
-        D = min_cumsum(C)
+    D = min_cumsum(C)
     flat = D.reshape(b, -1)
     end = end_inds.to(device=C.device, dtype=torch.int64)
     rows = torch.arange(b, device=C.device)
@@ -96,36 +96,34 @@ def alignment_reference(C: torch.Tensor, end_inds: torch.Tensor):
 
     # the walk from (r, end + 1) to (1, 1): r + c visits, the last ones
     # staying at (1, 1)
-    with tracing.span("dtw.traceback"):
-        neighbours = torch.tensor([cw + 1, cw, 1], device=C.device)
-        moves = torch.tensor([[1, 1], [1, 0], [0, 1]], device=C.device)
-        i = torch.full((b,), r, dtype=torch.int64, device=C.device)
-        j = end + 1
-        path = torch.empty((b, r + c), dtype=torch.int64, device=C.device)
-        for s in range(r + c):
-            f = i * cw + j
-            path[:, s] = f
-            step = moves[torch.argmin(flat.gather(1, f[:, None] - neighbours), dim=1)]
-            i = torch.clamp(i - step[:, 0], min=1)
-            j = torch.clamp(j - step[:, 1], min=1)
+    neighbours = torch.tensor([cw + 1, cw, 1], device=C.device)
+    moves = torch.tensor([[1, 1], [1, 0], [0, 1]], device=C.device)
+    i = torch.full((b,), r, dtype=torch.int64, device=C.device)
+    j = end + 1
+    path = torch.empty((b, r + c), dtype=torch.int64, device=C.device)
+    for s in range(r + c):
+        f = i * cw + j
+        path[:, s] = f
+        step = moves[torch.argmin(flat.gather(1, f[:, None] - neighbours), dim=1)]
+        i = torch.clamp(i - step[:, 0], min=1)
+        j = torch.clamp(j - step[:, 1], min=1)
 
     # per column the visited cell of least cost; on a tie the later visit,
     # which is the smaller node index (the JAX scan's running `<=`)
-    with tracing.span("dtw.match"):
-        cost = flat.gather(1, path)
-        node = path // cw - 1
-        col = torch.clamp(path % cw - 1, 0, c - 1)
-        best_cost = torch.full((b, c), float("inf"), dtype=C.dtype, device=C.device)
-        best_cost = best_cost.scatter_reduce(1, col, cost, "amin")
-        on_best = cost == best_cost.gather(1, col)
-        none = r  # above every node index
-        best_node = torch.full((b, c), none, dtype=torch.int64, device=C.device)
-        best_node = best_node.scatter_reduce(
-            1, col, torch.where(on_best, node, torch.full_like(node, none)), "amin")
-        best_node = torch.where(best_node == none, torch.zeros_like(best_node), best_node)
-        t_idx = torch.arange(c, device=C.device)[None, :]
-        inds = best_node.gather(1, torch.minimum(t_idx, end[:, None]))
-    return inds, dist
+    cost = flat.gather(1, path)
+    node = path // cw - 1
+    col = torch.clamp(path % cw - 1, 0, c - 1)
+    best_cost = torch.full((b, c), float("inf"), dtype=C.dtype, device=C.device)
+    best_cost = best_cost.scatter_reduce(1, col, cost, "amin")
+    on_best = cost == best_cost.gather(1, col)
+    none = r  # above every node index
+    best_node = torch.full((b, c), none, dtype=torch.int64, device=C.device)
+    best_node = best_node.scatter_reduce(
+        1, col, torch.where(on_best, node, torch.full_like(node, none)), "amin")
+    best_node = torch.where(best_node == none, torch.zeros_like(best_node), best_node)
+    t_idx = torch.arange(c, device=C.device)[None, :]
+    inds = best_node.gather(1, torch.minimum(t_idx, end[:, None]))
+    return (inds, dist, D) if return_dp else (inds, dist)
 
 
 def _align16(nbytes: int) -> int:
@@ -158,36 +156,20 @@ def launch_plan(r: int, c: int) -> LaunchPlan:
     header = (_align16(2 * MAX_WARPS * 4 + 4) + _align16(8 * (c + 1))
               + 2 * _align16(4 * (r + c)) + _align16(4 * c))
     choices = 4 * r * words
-    if header + choices <= SMEM_LIMIT:
+    if header + choices <= cuda_build.SMEM_LIMIT:
         return LaunchPlan(warps, 1, words, header + choices)
     return LaunchPlan(warps, 0, words, header)
 
 
-@functools.lru_cache(maxsize=None)
-def _c_plan(plan: LaunchPlan):
-    return (ctypes.c_int * 4)(*astuple(plan))
-
-
-def load_library():
-    """Build (at first use) and bind K4's shared library."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
-        lib.dtw_align_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-        lib.dtw_align_f32.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def k4(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
-    """K4 on a CUDA tensor: (inds, dist) of `batched_dtw_alignment` for C
-    [B, r, c] float32 and end_inds [B] on C's card, or (inds, dist, D) with
-    `return_dp` (D [B, r+1, c+1], as `min_cumsum` gives it). A C that is not
-    contiguous is copied; integer end_inds other than int64 are cast. Each
-    launch counts under `tracing.COUNTS["k4.launches"]`."""
-    if C.device.type != "cuda":
-        raise ValueError(f"dtw: no kernel for {C.device}")
+    """K4 on a CUDA tensor, its twin on a CPU tensor: (inds, dist) of
+    `batched_dtw_alignment` for C [B, r, c] float32 and end_inds [B] on C's
+    card, or (inds, dist, D) with `return_dp` (D [B, r+1, c+1], as
+    `min_cumsum` gives it). A C that is not contiguous is copied; integer
+    end_inds other than int64 are cast. Each launch counts under
+    `tracing.COUNTS["k4.launches"]`."""
+    if not cuda_build.takes_kernel(C, "dtw"):
+        return alignment_reference(C, end_inds, return_dp)
     if C.dtype != torch.float32 or C.dim() != 3:
         raise ValueError(f"dtw: need float32 [B, r, c], got {C.dtype} {tuple(C.shape)}")
     b, r, c = C.shape
@@ -205,15 +187,11 @@ def k4(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
     dp = (torch.empty((b, r + 1, c + 1), dtype=torch.float32, device=C.device)
           if return_dp else None)
     if b:
-        with cuda_build.on_device(C):
-            err = load_library().dtw_align_f32(
-                C.data_ptr(), end_inds.data_ptr(), inds.data_ptr(), dist.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
-                None if dp is None else dp.data_ptr(), b, r, c, _c_plan(plan),
-                cuda_build.stream(C))
-        if err != 0:
-            raise RuntimeError(f"dtw_align launch failed: CUDA error {err}")
-        tracing.count("k4.launches")
+        cuda_build.launch(SOURCE, ENTRY_POINTS, "dtw_align_f32", C, C.data_ptr(),
+                          end_inds.data_ptr(), inds.data_ptr(), dist.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(),
+                          None if dp is None else dp.data_ptr(), b, r, c,
+                          cuda_build.c_plan(plan), counter="k4.launches")
     return (inds, dist, dp) if return_dp else (inds, dist)
 
 
@@ -229,8 +207,6 @@ def batched_dtw_alignment(C: torch.Tensor, end_inds: torch.Tensor):
         costs least, frames past end_ind repeating the last valid match;
         dist [B], the normalized DTW distance D[r, end+1] / (r + end + 1)).
     """
-    if C.device.type == "cpu":
-        return alignment_reference(C, end_inds)
     return k4(C, end_inds)
 
 

@@ -4,8 +4,8 @@ backward kernel K2, wired as one `torch.autograd.Function`.
 K1 replaces the Pallas TPU kernel `video_gcp_tpu/ops/fused_gn.py:_gn_lrelu_kernel`
 (its pallas_call in `_gn_lrelu_pallas`), K2 replaces `_gn_lrelu_bwd_kernel`
 (its pallas_call in `_gn_lrelu_bwd_pallas`). Both are CUDA C++ in
-`video_gcp_torch/csrc/fused_gn.cu`, built with nvcc at first use and bound
-with ctypes.
+`video_gcp_torch/csrc/fused_gn.cu`, built, bound and launched through
+`ops/cuda_build.py`.
 
 Numerics follow flax.linen.GroupNorm: float32 statistics with the fast
 variance E[x^2] - E[x]^2 clipped at 0, eps 1e-6 (not torch's 1e-5),
@@ -35,10 +35,10 @@ counts the copy in `tracing.COUNTS["k2.dy_copies"]` (2 per step of the
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
-from dataclasses import astuple, dataclass
+from ctypes import c_float, c_int, c_int64, c_void_p
+from dataclasses import dataclass
 
 import torch
 
@@ -53,13 +53,19 @@ MAX_BWD_CHANNELS = 256  # K2's parameter-gradient rows stay small
 SM_COUNT = 132
 MAX_THREADS = 512  # threads a CTA (kMaxThreads)
 MAX_CLUSTER = 8  # CTAs a sample may span (kMaxCluster), the portable limit
-SMEM_LIMIT = 232448  # dynamic shared memory a CTA may use
 CTA_CACHE_BYTES = 64 * 1024  # samples a CTA caches: three CTAs share an SM
 VECS_PER_THREAD = 16  # 16-byte vectors a thread takes per pass
 PACKED_THREADS = 256  # CTA size when small samples are packed
 FIN_ONE_LEVEL_BYTES = 32 * 1024  # K2: one CTA sums all dscale/dbias rows up to this
 
-_lib = None
+# The C entry points' arguments before the stream: the tensors (x, scale,
+# bias, y; or x, dy, scale, bias, dx, ws, tickets), then n, per_sample, c,
+# groups, eps, slope and the plan
+_SIZES = (c_int64, c_int64, c_int, c_int, c_float, c_float, c_void_p)
+ENTRY_POINTS = {
+    **dict.fromkeys(("gn_lrelu_fwd_f32", "gn_lrelu_fwd_bf16"), (c_void_p,) * 4 + _SIZES),
+    **dict.fromkeys(("gn_lrelu_bwd_f32", "gn_lrelu_bwd_bf16"), (c_void_p,) * 7 + _SIZES),
+}
 _tickets: dict = {}  # (device index, stream) -> int32 K2 tickets, zero between launches
 
 
@@ -118,7 +124,7 @@ def launch_plan(shape: tuple, itemsize: int, groups: int, bwd: bool,
     floats = (2 * (threads // 32) * shfl * vec + 2 * spb * c + 4 * spb * groups
               + 4 * groups + (max(4 * threads, 2 * c) if bwd else 0))
     smem = -(-nin * spb * length * itemsize // 16) * 16 + 4 * floats
-    if smem > SMEM_LIMIT:
+    if smem > cuda_build.SMEM_LIMIT:
         raise ValueError(f"fused_group_norm_lrelu: a sample of {tuple(shape[-3:])} needs "
                          f"{smem} bytes of shared memory in each of {cluster} CTAs")
     ctas = -(-n // spb) * cluster
@@ -126,11 +132,6 @@ def launch_plan(shape: tuple, itemsize: int, groups: int, bwd: bool,
     fin_group = (max(ctas, 1) if ctas * 2 * c * 4 <= FIN_ONE_LEVEL_BYTES
                  else math.isqrt(ctas - 1) + 1)
     return LaunchPlan(vec, threads, team, spb, cluster, shfl, smem, fin_group, ctas)
-
-
-@functools.lru_cache(maxsize=None)
-def _c_plan(plan: LaunchPlan):
-    return (ctypes.c_int * 8)(*astuple(plan)[:8])
 
 
 def gn_lrelu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -189,23 +190,6 @@ def gn_lrelu_bwd_reference(x: torch.Tensor, dy: torch.Tensor,
             dbias.to(bias.dtype))
 
 
-def load_library():
-    """Build (at first use) and bind the kernels' shared library."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
-        tail = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-        for fn in (lib.gn_lrelu_fwd_f32, lib.gn_lrelu_fwd_bf16):
-            fn.argtypes = [ctypes.c_void_p] * 4 + tail
-            fn.restype = ctypes.c_int
-        for fn in (lib.gn_lrelu_bwd_f32, lib.gn_lrelu_bwd_bf16):
-            fn.argtypes = [ctypes.c_void_p] * 7 + tail
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
            num_groups: int) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -221,12 +205,6 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     for name, p in (("scale", scale), ("bias", bias)):
         if p.shape != (c,) or p.device != x.device:
             raise ValueError(f"fused_group_norm_lrelu: {name} must be [{c}] on {x.device}")
-
-
-def _device(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_group_norm_lrelu: no kernel for {x.device}")
-    return x.device.type
 
 
 def _f32(p: torch.Tensor) -> torch.Tensor:
@@ -246,24 +224,20 @@ def gn_lrelu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  num_groups: int, eps: float = 1e-6,
                  slope: float = 0.2) -> torch.Tensor:
     """K1 on a CUDA tensor, its twin on a CPU tensor; no autograd."""
-    if _device(x) == "cpu":
+    if not cuda_build.takes_kernel(x, "fused_group_norm_lrelu"):
         return gn_lrelu_reference(x, scale, bias, num_groups, eps, slope)
     _check(x, scale, bias, num_groups)
     plan = _plan(x, num_groups, False)
     y = torch.empty_like(x)
     if plan.ctas == 0:
         return y
-    lib = load_library()
     h, w, c = x.shape[-3:]
     scale32, bias32 = _f32(scale), _f32(bias)
-    fn = lib.gn_lrelu_fwd_f32 if x.dtype == torch.float32 else lib.gn_lrelu_fwd_bf16
-    with cuda_build.on_device(x):
-        err = fn(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
-                 y.data_ptr(), x.numel() // (h * w * c), h * w * c, c, num_groups,
-                 eps, slope, _c_plan(plan), cuda_build.stream(x))
-    if err != 0:
-        raise RuntimeError(f"gn_lrelu_fwd launch failed: CUDA error {err}")
-    tracing.count("k1.launches")
+    entry = "gn_lrelu_fwd_f32" if x.dtype == torch.float32 else "gn_lrelu_fwd_bf16"
+    cuda_build.launch(SOURCE, ENTRY_POINTS, entry, x,
+                      x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
+                      x.numel() // (h * w * c), h * w * c, c, num_groups, eps, slope,
+                      cuda_build.c_plan(plan), counter="k1.launches")
     return y
 
 
@@ -288,7 +262,7 @@ def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, num_groups: int, eps: float = 1e-6,
                  slope: float = 0.2):
     """K2 on CUDA tensors, its twin on CPU tensors: (dx, dscale, dbias)."""
-    if _device(x) == "cpu":
+    if not cuda_build.takes_kernel(x, "fused_group_norm_lrelu"):
         return gn_lrelu_bwd_reference(x, dy, scale, bias, num_groups, eps, slope)
     _check(x, scale, bias, num_groups)
     c = x.shape[-1]
@@ -306,21 +280,16 @@ def gn_lrelu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     if plan.ctas == 0:
         zero = torch.zeros(c, dtype=torch.float32, device=x.device)
         return dx, zero.to(scale.dtype), zero.to(bias.dtype)
-    lib = load_library()
     h, w = x.shape[-3:-1]
     ws = torch.empty(bwd_workspace_floats(plan, c), dtype=torch.float32, device=x.device)
     scale32, bias32 = _f32(scale), _f32(bias)
-    fn = lib.gn_lrelu_bwd_f32 if x.dtype == torch.float32 else lib.gn_lrelu_bwd_bf16
-    with cuda_build.on_device(x):
-        stream = cuda_build.stream(x)
-        tickets = _bwd_tickets(x, stream, -(-plan.ctas // plan.fin_group) + 1)
-        err = fn(x.data_ptr(), dy.data_ptr(), scale32.data_ptr(),
-                 bias32.data_ptr(), dx.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
-                 x.numel() // (h * w * c), h * w * c, c, num_groups, eps, slope,
-                 _c_plan(plan), stream)
-    if err != 0:
-        raise RuntimeError(f"gn_lrelu_bwd launch failed: CUDA error {err}")
-    tracing.count("k2.launches")
+    tickets = _bwd_tickets(x, cuda_build.stream(x), -(-plan.ctas // plan.fin_group) + 1)
+    entry = "gn_lrelu_bwd_f32" if x.dtype == torch.float32 else "gn_lrelu_bwd_bf16"
+    cuda_build.launch(SOURCE, ENTRY_POINTS, entry, x,
+                      x.data_ptr(), dy.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
+                      dx.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+                      x.numel() // (h * w * c), h * w * c, c, num_groups, eps, slope,
+                      cuda_build.c_plan(plan), counter="k2.launches")
     dscale, dbias = ws[-2 * c:-c], ws[-c:]
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         dscale, dbias = dscale.to(scale.dtype), dbias.to(bias.dtype)

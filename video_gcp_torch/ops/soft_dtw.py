@@ -19,8 +19,8 @@ and row i of Bk only row i + 1: each DP is a chain of r dependent rows.
 K3 replaces the Pallas TPU kernel `video_gcp_tpu/ops/pallas_dtw.py:_gak_kernel`
 (its pallas_call in `gak_pallas`, reached through `soft_dtw_pallas`) and the
 torch around it: one launch computes F, Bk and w (`soft_dtw_pallas` whole).
-It is CUDA C++ in `video_gcp_torch/csrc/soft_dtw.cu`, built with nvcc at
-first use and bound with ctypes; `launch_plan` chooses its launch shape. On a
+It is CUDA C++ in `video_gcp_torch/csrc/soft_dtw.cu`, built, bound and
+launched through `ops/cuda_build.py`; `launch_plan` chooses its launch shape. On a
 CUDA tensor `soft_dtw` launches it or raises; on a CPU tensor it runs the
 plain twin `soft_dtw_rows_reference`, which walks the rows as the kernel
 does. Each cell gets the same float32 operations on the same operands as in
@@ -39,13 +39,12 @@ devices, as the JAX package stops the gradient.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-from dataclasses import astuple, dataclass
+from ctypes import c_int, c_void_p
+from dataclasses import dataclass
 
 import torch
 
-from video_gcp_torch import tracing
 from video_gcp_torch.ops import cuda_build
 
 SOURCE = "soft_dtw.cu"
@@ -53,7 +52,6 @@ NEG_INF = -1e30  # finite stand-in for -inf
 MAX_FRAMES = 2457  # the frames (c) the kernel takes
 
 # Launch plan limits and targets (H100 SXM; the csrc constants in brackets)
-SMEM_LIMIT = 232448  # dynamic shared memory a block may use
 HEADER_BYTES = 1024  # mbarriers and edge exchange (kHeaderBytes)
 MAX_CHUNKS = 64  # C chunks resident in shared memory, one mbarrier each (kMaxBars)
 MAX_SLOTS = 4  # C chunks a chain's ring holds when C streams (kMaxSlots)
@@ -62,7 +60,10 @@ COLS_PER_LANE = (4, 8, 12)  # V: instances in the csrc, the first that fits
 MAX_CHAIN_WARPS = 7  # warps a DP chain may span (kMaxChainWarps)
 THREADS = 512  # a block: the producer warp, two chains, and the rest join the epilogue
 
-_lib = None
+ENTRY_POINTS = {  # the arguments before the stream
+    "soft_dtw_f32": (c_void_p,) * 4 + (c_int,) * 3 + (c_void_p,),  # C, ends, w, dp; b, r, c; plan
+    "soft_dtw_log1p_mismatches": (c_void_p,),  # the count
+}
 
 
 @dataclass(frozen=True)
@@ -99,18 +100,13 @@ def launch_plan(r: int, c: int, aligned: bool = True) -> LaunchPlan:
     chunks = -(-r // rows)
     cells = -(-r * c // 4) * 4  # each array starts 16-byte aligned
     smem = HEADER_BYTES + 3 * cells * 4
-    if smem <= SMEM_LIMIT and chunks <= MAX_CHUNKS:
+    if smem <= cuda_build.SMEM_LIMIT and chunks <= MAX_CHUNKS:
         return LaunchPlan(cols, warps, 1, rows, chunks, 0, vec, smem)
     ring = 2 * rows * c * 4  # one chunk for each chain
-    slots = min(MAX_SLOTS, (SMEM_LIMIT - HEADER_BYTES) // ring)
+    slots = min(MAX_SLOTS, (cuda_build.SMEM_LIMIT - HEADER_BYTES) // ring)
     if slots < 1:
         raise ValueError(f"soft_dtw: {c} frames need {ring} bytes of shared memory")
     return LaunchPlan(cols, warps, 0, rows, chunks, slots, vec, HEADER_BYTES + slots * ring)
-
-
-@functools.lru_cache(maxsize=None)
-def _c_plan(plan: LaunchPlan):
-    return (ctypes.c_int * 8)(*astuple(plan))
 
 
 def gak_reference(comb: torch.Tensor, begin: torch.Tensor) -> torch.Tensor:
@@ -189,28 +185,13 @@ def soft_dtw_rows_reference(C: torch.Tensor, end_inds: torch.Tensor,
     return (w, f, bk) if return_dp else w
 
 
-def load_library():
-    """Build (at first use) and bind K3's shared library."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build(SOURCE)))
-        lib.soft_dtw_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-        lib.soft_dtw_f32.restype = ctypes.c_int
-        lib.soft_dtw_log1p_mismatches.argtypes = [ctypes.c_void_p] * 2
-        lib.soft_dtw_log1p_mismatches.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def log1p_mismatches(device) -> int:
     """The floats u in [0, 1] where K3's branch-free log1p differs from the
     CUDA library's log1pf, counted on `device` (0 keeps K3's DP values
     those of the library's logaddexp, bit for bit)."""
     count = torch.zeros(1, dtype=torch.int32, device=device)
-    err = load_library().soft_dtw_log1p_mismatches(count.data_ptr(), cuda_build.stream(count))
-    if err != 0:
-        raise RuntimeError(f"soft_dtw_log1p_mismatches launch failed: CUDA error {err}")
+    cuda_build.launch(SOURCE, ENTRY_POINTS, "soft_dtw_log1p_mismatches", count,
+                      count.data_ptr())
     return int(count.item())
 
 
@@ -218,10 +199,8 @@ def k3(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
     """K3 on a CUDA tensor, its twin on a CPU tensor: w for C [B, r, c]
     float32 and end_inds [B] int64, or (w, F, Bk) with `return_dp`; each
     launch counts under `tracing.COUNTS["k3.launches"]`."""
-    if C.device.type == "cpu":
+    if not cuda_build.takes_kernel(C, "soft_dtw"):
         return soft_dtw_rows_reference(C, end_inds, return_dp)
-    if C.device.type != "cuda":
-        raise ValueError(f"soft_dtw: no kernel for {C.device}")
     if C.dtype != torch.float32 or C.dim() != 3 or not C.is_contiguous():
         raise ValueError(f"soft_dtw: need contiguous float32 [B, r, c], got "
                          f"{C.dtype} {tuple(C.shape)}")
@@ -236,14 +215,10 @@ def k3(C: torch.Tensor, end_inds: torch.Tensor, return_dp: bool = False):
     dp = (torch.empty((b, 2, r, c), dtype=torch.float32, device=C.device)
           if return_dp or not plan.resident else None)
     if b:
-        lib = load_library()
-        with cuda_build.on_device(C):
-            err = lib.soft_dtw_f32(C.data_ptr(), end_inds.data_ptr(), w.data_ptr(),
-                                   None if dp is None else dp.data_ptr(), b, r, c,
-                                   _c_plan(plan), cuda_build.stream(C))
-        if err != 0:
-            raise RuntimeError(f"soft_dtw launch failed: CUDA error {err}")
-        tracing.count("k3.launches")
+        cuda_build.launch(SOURCE, ENTRY_POINTS, "soft_dtw_f32", C, C.data_ptr(),
+                          end_inds.data_ptr(), w.data_ptr(),
+                          None if dp is None else dp.data_ptr(), b, r, c,
+                          cuda_build.c_plan(plan), counter="k3.launches")
     return (w, dp[:, 0], dp[:, 1]) if return_dp else w
 
 

@@ -54,8 +54,7 @@ SPANS = (
     # model backward, on the autograd engine's thread (grad_span)
     "encoder.bwd", "tree_level.bwd", "rollout.bwd", "decoder.bwd",
     # evaluation
-    "eval.sample", "eval.metrics", "eval.to_host",
-    "dtw", "dtw.dp", "dtw.traceback", "dtw.match",
+    "eval.sample", "eval.metrics", "eval.to_host", "dtw",
     # planning
     "plan.sampler", "plan.simulator", "sim.forward", "sim.to_host", "sim.cap",
     "plan.cost",
