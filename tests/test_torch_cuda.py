@@ -49,6 +49,12 @@ package, so on a machine with the card and without JAX it runs as
   K1 on a bf16 x at every norm, float32 outputs within a mean of 1e-2 of
   the same model in bf16 on the CPU, and a train step that leaves float32
   parameters and gradients.
+- After a warm-up, one 'pruned_dtw' Evaluator sample of a small GCP-tree
+  (the prior forward, the dense sample and the metrics) and one balanced
+  train forward (binding and losses included) run under
+  `torch.cuda.set_sync_debug_mode("error")`: the tree's constant tables are
+  on the card, so nothing blocks the host; no table is uploaded, and the
+  outputs equal those of the same calls with the tables uploaded afresh.
 """
 import numpy as np
 import pytest
@@ -61,7 +67,8 @@ from video_gcp_torch.models.hyperparameters import default_hparams
 from video_gcp_torch.models.tree import TreeModel
 from video_gcp_torch.models import nets
 from video_gcp_torch.models.nets import ConvEncoder
-from video_gcp_torch.ops import cuda_build, dtw, fused_gn
+from video_gcp_torch.evaluation.evaluator import Evaluator
+from video_gcp_torch.ops import cuda_build, dtw, fused_gn, tree_index
 from video_gcp_torch.ops import soft_dtw as sdtw
 from video_gcp_torch.parallel.train_step import make_optimizer, train_step
 from video_gcp_torch.tracing import COUNTS
@@ -864,3 +871,51 @@ def test_train_steps_through_the_rollout_graph_match_eager_steps(card):
     for name, p in graphed.named_parameters():
         scale = max(want[name].abs().max().item(), 1e-30)
         assert (p - want[name]).abs().max().item() <= 1e-5 * scale, name
+
+
+def _no_sync_calls(model, evaluator, inputs, batch, card, seeds):
+    """One Evaluator sample and one train forward from generators seeded
+    `seeds`: the sample's (metrics, dense sample, df nodes) and the forward's
+    binding outputs and loss values."""
+    gens = [torch.Generator(card).manual_seed(s) for s in seeds]
+    m, gen, full = evaluator._eval_sample(inputs, gens[0])
+    model.train()
+    out = model(batch, phase="train", mode="posterior", generator=gens[1])
+    model.eval()
+    train = dict(existence_logits=out.existence_logits, gt_match_dists=out.gt_match_dists,
+                 **{k: v.value for k, v in out.losses.items()})
+    return dict(m, gen=gen, full=full), {k: v.detach() for k, v in train.items()}
+
+
+def test_an_eval_sample_and_a_train_forward_do_not_synchronise(card, tmp_path, monkeypatch):
+    torch.manual_seed(0)
+    hp = _small_train_hp()
+    model = TreeModel(hp).to(card, memory_format=torch.channels_last).eval()
+    rng = np.random.RandomState(0)
+    seq = torch.from_numpy((rng.rand(2, 10, 16, 16, 3) * 2 - 1).astype(np.float32)).to(card)
+    end = torch.tensor([9, 6], device=card)
+    pad = (torch.arange(10, device=card)[None] <= end[:, None]).float()
+    inputs = AttrDict(traj_seq=seq, I_0=seq[:, 0], I_g=seq[torch.arange(2), end],
+                      end_ind=end, pad_mask=pad)
+    batch = AttrDict(inputs, actions=torch.randn(2, 9, 2, device=card) * 0.1,
+                     traj_seq_states=torch.rand(2, 10, 2, device=card))
+    evaluator = Evaluator(model, str(tmp_path), hp, 10, pruning_scheme="pruned_dtw",
+                          top_of_100=False)
+    _no_sync_calls(model, evaluator, inputs, batch, card, (1, 2))  # builds, makes the tables
+    torch.cuda.synchronize()
+    uploads = COUNTS["tree_index.table_uploads"]
+    hits = COUNTS["tree_index.table_hits"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _no_sync_calls(model, evaluator, inputs, batch, card, (3, 4))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert COUNTS["tree_index.table_uploads"] == uploads
+    assert COUNTS["tree_index.table_hits"] > hits
+    monkeypatch.setattr(tree_index, "_TABLES", {})
+    want = _no_sync_calls(model, evaluator, inputs, batch, card, (3, 4))
+    assert COUNTS["tree_index.table_uploads"] > uploads
+    for g, w in zip(got, want, strict=True):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), k

@@ -131,7 +131,8 @@ def test_every_name_used_in_the_package_is_declared():
     assert set(tracing.SPANS) <= used["span"], set(tracing.SPANS) - used["span"]
     assert set(tracing.HOST_SITES) <= used["site"]
     assert {"rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
-            "k1.launches", "k2.launches", "k3.launches", "k4.launches"} <= used["count"]
+            "k1.launches", "k2.launches", "k3.launches", "k4.launches",
+            "tree_index.table_uploads", "tree_index.table_hits"} <= used["count"]
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
     assert set(tracing.UNITS) <= set(tracing.SPANS)
 

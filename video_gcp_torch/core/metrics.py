@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from video_gcp_torch.ops.tree_index import device_table
+
 
 def _to01(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
@@ -29,11 +31,12 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-10) -> torch.
     return -10.0 * torch.log10(mse(pred, target) + eps)
 
 
-def _gaussian_window(size: int, sigma: float, like: torch.Tensor) -> torch.Tensor:
+def _gaussian_window(size: int, sigma: float, dtype: torch.dtype) -> torch.Tensor:
+    """The [size, size] window on the host, computed in float32."""
     x = torch.arange(size, dtype=torch.float32) - (size - 1) / 2.0
     g = torch.exp(-(x ** 2) / (2 * sigma ** 2))
     g = g / g.sum()
-    return torch.outer(g, g).to(device=like.device, dtype=like.dtype)
+    return torch.outer(g, g).to(dtype)
 
 
 def ssim(pred: torch.Tensor, target: torch.Tensor, kernel_size: int = 11,
@@ -51,7 +54,8 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, kernel_size: int = 11,
     h, w, c = p.shape[-3:]
     p = p.reshape(-1, h, w, c).permute(0, 3, 1, 2)
     t = t.reshape(-1, h, w, c).permute(0, 3, 1, 2)
-    window = _gaussian_window(kernel_size, sigma, p).expand(c, 1, kernel_size, kernel_size)
+    window = device_table(_gaussian_window, p.device, kernel_size, sigma, p.dtype)
+    window = window.expand(c, 1, kernel_size, kernel_size)
 
     def filt(x):
         return F.conv2d(x, window, groups=c)

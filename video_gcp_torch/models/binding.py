@@ -38,6 +38,7 @@ from video_gcp_torch.ops.tree_index import (
     balanced_timesteps,
     breadthfirst2depthfirst,
     depthfirst2breadthfirst,
+    device_table,
 )
 
 
@@ -61,6 +62,16 @@ def balanced_match_dists(depth: int, end_ind: torch.Tensor,
     t_l, t_r = torch.cat(t_l, 1), torch.cat(t_r, 1)
     collide = (torch.trunc(t_l) == ts) | (torch.trunc(t_r) == ts)
     return torch.where(collide[:, :, None], torch.zeros_like(one_hot), one_hot)
+
+
+def _top_bias_mask_df(n: int, n_top_layers: int, top_bias: float) -> np.ndarray:
+    """float32 [n] over df nodes: top_bias on the first n_top_layers levels'
+    nodes, 1 elsewhere."""
+    depth = int(np.log2(n + 1))
+    m = np.ones(n, dtype=np.float32)
+    for l in range(n_top_layers):
+        m[2 ** (depth - l - 1) - 1::2 ** (depth - l)] = top_bias
+    return m
 
 
 class BalancedBinding(nn.Module):
@@ -185,11 +196,9 @@ class AdaptiveBinding(nn.Module):
         if hp.get("top_bias", 1.0) == 1.0:
             return cost
         n_top_layers = int(np.log2(hp["n_top_bias_nodes"] + 1))
-        depth = int(np.log2(cost.shape[1] + 1))
-        m = np.ones(cost.shape[1], dtype=np.float32)
-        for l in range(n_top_layers):
-            m[2 ** (depth - l - 1) - 1::2 ** (depth - l)] = hp["top_bias"]
-        return cost * torch.as_tensor(m, device=cost.device)[None, :, None]
+        m = device_table(_top_bias_mask_df, cost.device, cost.shape[1], n_top_layers,
+                         hp["top_bias"])
+        return cost * m[None, :, None]
 
     def _hack_weights_bf(self, weights: torch.Tensor) -> torch.Tensor:
         """Leaves and top bias on bf-ordered per-node weights

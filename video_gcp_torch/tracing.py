@@ -23,10 +23,10 @@ the backward pass ends. The hooks are registered only while tracing is on and
 return nothing, so gradients are the same with tracing on or off.
 
 Counters are entries of `COUNTS`, added to by `count(name, n)`. The kernel
-launch counters and the `rollout.*` counters count whether tracing is on or
-off; the host copies at the instrumented sites (`to_host`) only while it is
-on. Every span and counter name is declared here, once: `SPANS`, `COUNTERS`
-and `HOST_SITES`.
+launch counters, the `rollout.*` counters and the `tree_index.*` counters
+count whether tracing is on or off; the host copies at the instrumented
+sites (`to_host`) only while it is on. Every span and counter name is
+declared here, once: `SPANS`, `COUNTERS` and `HOST_SITES`.
 """
 from __future__ import annotations
 
@@ -66,6 +66,7 @@ HOST_SITES = ("eval.metrics", "eval.rand_seqs", "eval.best_gen", "eval.best_full
               "eval.gt_seq", "eval.end_ind", "sim.outputs", "cost.result")
 COUNTERS = ("k1.launches", "k2.launches", "k2.dy_copies", "k3.launches", "k4.launches",
             "rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
+            "tree_index.table_uploads", "tree_index.table_hits",
             "to_host.copies", "to_host.bytes",
             *(f"to_host.bytes.{site}" for site in HOST_SITES))
 
