@@ -132,7 +132,8 @@ def test_every_name_used_in_the_package_is_declared():
     assert set(tracing.HOST_SITES) <= used["site"]
     assert {"rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
             "k1.launches", "k2.launches", "k3.launches", "k4.launches",
-            "tree_index.table_uploads", "tree_index.table_hits"} <= used["count"]
+            "tree_index.table_uploads", "tree_index.table_hits",
+            "train.update_tensors", "train.update_bytes"} <= used["count"]
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
     assert set(tracing.UNITS) <= set(tracing.SPANS)
 

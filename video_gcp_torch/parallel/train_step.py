@@ -195,6 +195,7 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
             # (the inverse-model fine-tune's frozen trunk): the JAX step masks
             # and measures all of them, and clips only what its optimizer sees
             grads = [p.grad for p in model.parameters() if p.grad is not None]
+            _count_update(grads)
             grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             for g in grads:
                 g.masked_fill_(~grads_finite, 0.0)
@@ -224,6 +225,15 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
     return metrics
 
 
+def _count_update(grads) -> None:
+    """While tracing is on: the gradients a step masks and hands to the
+    optimizer ('train.update_tensors') and their bytes ('train.update_bytes';
+    under a mesh, this rank's shards)."""
+    if tracing.enabled():
+        tracing.count("train.update_tensors", len(grads))
+        tracing.count("train.update_bytes", sum(g.numel() * g.element_size() for g in grads))
+
+
 def _reduced_grads(params, mesh, clip):
     """The gradients reduced over the ranks, masked when any element of the
     global gradient is non-finite, and clipped by the global norm
@@ -232,6 +242,7 @@ def _reduced_grads(params, mesh, clip):
     grads = [p.grad for p in params]
     _average_whole_grads(grads)
     local = [_local(g) for g in grads]
+    _count_update(local)
     finite = torch.stack([torch.isfinite(g).all() for g in local]).all()
     flag = finite.to(torch.float32).reshape(1)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)

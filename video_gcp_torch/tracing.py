@@ -25,8 +25,10 @@ return nothing, so gradients are the same with tracing on or off.
 Counters are entries of `COUNTS`, added to by `count(name, n)`. The kernel
 launch counters, the `rollout.*` counters and the `tree_index.*` counters
 count whether tracing is on or off; the host copies at the instrumented
-sites (`to_host`) only while it is on. Every span and counter name is
-declared here, once: `SPANS`, `COUNTERS` and `HOST_SITES`.
+sites (`to_host`) and the `train.update_*` counters only while it is on
+(`enabled()`), so that a step with tracing off pays no loop over tensors.
+Every span and counter name is declared here, once: `SPANS`, `COUNTERS` and
+`HOST_SITES`.
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ HOST_SITES = ("eval.metrics", "eval.rand_seqs", "eval.best_gen", "eval.best_full
 COUNTERS = ("k1.launches", "k2.launches", "k2.dy_copies", "k3.launches", "k4.launches",
             "rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
             "tree_index.table_uploads", "tree_index.table_hits",
+            "train.update_tensors", "train.update_bytes",
             "to_host.copies", "to_host.bytes",
             *(f"to_host.bytes.{site}" for site in HOST_SITES))
 
@@ -179,6 +182,11 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return wrapper
     return decorate
+
+
+def enabled() -> bool:
+    """Whether tracing is on (a session is open)."""
+    return _on
 
 
 def count(name: str, n: int = 1) -> None:
