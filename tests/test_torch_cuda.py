@@ -49,6 +49,11 @@ package, so on a machine with the card and without JAX it runs as
   K1 on a bf16 x at every norm, float32 outputs within a mean of 1e-2 of
   the same model in bf16 on the CPU, and a train step that leaves float32
   parameters and gradients.
+- The train step's finite mask and norm over its gradient buffer
+  (`train.grad_mask`, after two warm-up steps, counted with torch.profiler
+  as the benchmark counts launches): the same number of launch calls, at
+  most 10, for the tied 9-room tree's 146 tensors and the untied 25-room
+  tree's 419, at small widths.
 - After a warm-up, one 'pruned_dtw' Evaluator sample of a small GCP-tree
   (the prior forward, the dense sample and the metrics) and one balanced
   train forward (binding and losses included) run under
@@ -56,6 +61,9 @@ package, so on a machine with the card and without JAX it runs as
   on the card, so nothing blocks the host; no table is uploaded, and the
   outputs equal those of the same calls with the tables uploaded afresh.
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -919,3 +927,44 @@ def test_an_eval_sample_and_a_train_forward_do_not_synchronise(card, tmp_path, m
         assert g.keys() == w.keys()
         for k in w:
             assert torch.equal(g[k], w[k]), k
+
+
+def _grad_mask_launches(config_name, device, tmp_path):
+    """(update tensors, launch calls inside `train.grad_mask`) of the third
+    train step of a configuration at small widths on `device`."""
+    from gcpbench import generate, program, program_trace, weights
+    from video_gcp_torch import tracing
+
+    root = Path(__file__).resolve().parents[1]
+    config = json.loads((root / f"gcpbench/configs/{config_name}.json").read_text())
+    small = dict(ngf=8, nz_enc=16, nz_mid=16, nz_mid_lstm=16, nz_vae=8, max_seq_len=16)
+    model, hp = program.build_model(root, config, device, small)
+    weights.assign(model.train(), 0)
+    opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam", lr=2e-4)
+    mix = dict(seq_len=16, batch=2, pool_batches=1, lengths=dict(full=1.0, min=16))
+    batch = AttrDict(generate.sequences(mix, hp["img_sz"], 2, 0, device))
+    gen = torch.Generator(device).manual_seed(0)
+    for step in range(2):
+        train_step(model, opt, batch, step, gen)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with tracing.session() as s, torch.profiler.profile(activities=activities) as prof:
+        train_step(model, opt, batch, 2, gen)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    assert s.counts.get("train.grad_buffer.hits") == 1
+    assert "train.grad_buffer.misses" not in s.counts
+    path = tmp_path / f"{config_name}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return s.counts["train.update_tensors"], program_trace.launches_inside(events, "train.grad_mask")
+
+
+def test_the_grad_mask_launches_as_many_kernels_for_146_tensors_as_for_419(card, tmp_path):
+    got = {name: _grad_mask_launches(name, card, tmp_path)
+           for name in ("gcp_tree.9room", "gcp_tree.25room")}
+    assert [tensors for tensors, _ in got.values()] == [146, 419], got
+    launches = {n for _, n in got.values()}
+    assert len(launches) == 1 and 0 < launches.pop() <= 10, got

@@ -133,7 +133,8 @@ def test_every_name_used_in_the_package_is_declared():
     assert {"rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
             "k1.launches", "k2.launches", "k3.launches", "k4.launches",
             "tree_index.table_uploads", "tree_index.table_hits",
-            "train.update_tensors", "train.update_bytes"} <= used["count"]
+            "train.update_tensors", "train.update_bytes",
+            "train.grad_buffer.hits", "train.grad_buffer.misses"} <= used["count"]
     assert len(set(tracing.SPANS)) == len(tracing.SPANS)
     assert set(tracing.UNITS) <= set(tracing.SPANS)
 

@@ -13,6 +13,11 @@ the optax update and the step's metrics. Here the same runs eagerly:
   them torch's per-parameter step counts would drift from optax's one count;
 - `grad_norm` is the global norm of the masked gradients, before clipping.
 
+In one process every gradient is a view into one flat buffer per (device,
+dtype) (`GradBuffer`, kept on the model): autograd accumulates into the
+views, and the finite mask, the zero-fill and the norm are a few launches
+over the buffers, whatever the number of tensors.
+
 Under a process group (`mesh=`, see parallel/mesh.py) each rank holds its
 `batch_rows` of the global batch, and the gradients are reduced over the
 ranks before anything reads them, as XLA's psum does in the JAX step:
@@ -148,6 +153,108 @@ def _average_whole_grads(grads):
             offset += g.numel()
 
 
+class GradBuffer:
+    """The gradients of a model's trainable parameters as views into one
+    flat buffer per (device, dtype), kept on the model (`model.grad_buffer`)
+    so that it and its memory go with it (a deep copy starts without).
+
+    Each view has its parameter's own strides (channels_last conv weights
+    keep their layout, and the foreach optimizers their fast route) and
+    starts on a 64-byte boundary. The buffers are rebuilt when the
+    parameters, their storage, dtypes, devices, shapes or strides change
+    (`Module.to` moves a `.grad` off its view). A buffer holds whole rows
+    of `ROW` elements, and its norm is the norm of its rows' norms: one pass
+    over tens of millions of floats sums them one after another on the CPU
+    and loses digits. Counters `train.grad_buffer.hits` and `.misses`
+    (count always): a step counts a miss where some `.grad` was not its
+    view, at the top of the step (a caller's `set_to_none`) or after
+    backward (a hook that replaced it)."""
+
+    ALIGN_BYTES = 64
+    ROW = 4096
+
+    def __init__(self):
+        self.key = None
+        self.params, self.views, self.flats = [], [], []
+        self.missed = False
+
+    def __deepcopy__(self, memo):
+        return GradBuffer()
+
+    def zero(self, params) -> None:
+        """Zero every gradient of `params` and make each one's `.grad` its
+        view, (re)building the buffers first where `params` changed."""
+        key = [(id(p), p.data_ptr(), p.dtype, p.device, p.shape, p.stride()) for p in params]
+        fresh = key != self.key
+        if fresh:
+            self._build(params)
+            self.key = key
+        for flat in self.flats:
+            flat.zero_()
+        self.missed = False
+        for p, view in zip(self.params, self.views):
+            if p.grad is not view:
+                p.grad = view
+                self.missed = not fresh
+
+    def _build(self, params) -> None:
+        self.params, self.views, self.flats = list(params), [], []
+        sizes, placed = {}, []
+        for p in params:
+            group = (p.device, p.dtype)
+            align = max(1, self.ALIGN_BYTES // p.element_size())
+            offset = -(-sizes.get(group, 0) // align) * align
+            span = 1 + sum((n - 1) * s for n, s in zip(p.shape, p.stride())) if p.numel() else 0
+            sizes[group] = offset + span
+            placed.append((group, offset))
+        flats = {g: torch.zeros(-(-n // self.ROW) * self.ROW, device=g[0], dtype=g[1])
+                 for g, n in sizes.items()}
+        self.flats = list(flats.values())
+        self.views = [torch.as_strided(flats[g], p.shape, p.stride(), offset)
+                      for p, (g, offset) in zip(params, placed)]
+
+    def mask(self):
+        """Copy into its view any gradient found elsewhere, count the step,
+        zero every gradient where any element is non-finite; returns
+        (grads_finite, grad_norm) over all of them."""
+        for p, view in zip(self.params, self.views):
+            if p.grad is not view:
+                if p.grad is not None:
+                    view.copy_(p.grad)
+                p.grad = view
+                self.missed = True
+        if self.missed:
+            tracing.count("train.grad_buffer.misses")
+        else:
+            tracing.count("train.grad_buffer.hits")
+        _count_update(self.views)
+        flags = [torch.isfinite(flat).all() for flat in self.flats]
+        grads_finite = flags[0] if len(flags) == 1 else torch.stack(flags).all()
+        nonfinite = ~grads_finite
+        for flat in self.flats:
+            flat.masked_fill_(nonfinite, 0.0)
+        norms = [torch.linalg.vector_norm(torch.linalg.vector_norm(flat.view(-1, self.ROW), dim=1))
+                 for flat in self.flats]
+        grad_norm = norms[0] if len(norms) == 1 else torch.linalg.vector_norm(torch.stack(norms))
+        return grads_finite, grad_norm
+
+
+def _grad_buffer(model) -> GradBuffer:
+    buffer = getattr(model, "grad_buffer", None)
+    if buffer is None:
+        buffer = model.grad_buffer = GradBuffer()
+    return buffer
+
+
+def _trainable(model, optimizer) -> list:
+    """The model's parameters that need a gradient, then any other parameter
+    the optimizer steps."""
+    params = {id(p): p for p in model.parameters() if p.requires_grad}
+    for p in _params(optimizer):
+        params.setdefault(id(p), p)
+    return list(params.values())
+
+
 def _global_metrics(metrics: AttrDict) -> AttrDict:
     """The mean over the ranks of every metric, in one all_reduce."""
     keys = list(metrics)
@@ -177,7 +284,14 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
     With `mesh` (a DeviceMesh over every rank of the process group) `batch`
     is this rank's rows of the global batch, the gradients are reduced over
     the ranks first and the metrics are the global batch's."""
-    model.zero_grad(set_to_none=True)
+    if mesh is None:
+        # every gradient, also of parameters the optimizer does not step
+        # (the inverse-model fine-tune's frozen trunk): the JAX step masks
+        # and measures all of them, and clips only what its optimizer sees
+        buffer = _grad_buffer(model)
+        buffer.zero(_trainable(model, optimizer))
+    else:
+        model.zero_grad(set_to_none=True)
     out = model(batch, phase="train", mode="posterior", generator=generator,
                 step=step)
     losses = out.losses
@@ -186,24 +300,15 @@ def train_step(model, optimizer: torch.optim.Optimizer, batch: AttrDict,
 
     params = _params(optimizer)
     with tracing.span("train.grad_mask"):
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
         clip = optimizer.param_groups[0].get("gradient_clip")
         if mesh is None:
-            # every gradient, also of parameters the optimizer does not step
-            # (the inverse-model fine-tune's frozen trunk): the JAX step masks
-            # and measures all of them, and clips only what its optimizer sees
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            _count_update(grads)
-            grads_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            for g in grads:
-                g.masked_fill_(~grads_finite, 0.0)
-            grad_norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            grads_finite, grad_norm = buffer.mask()
             if clip is not None:
                 torch.nn.utils.clip_grad_norm_(params, clip)
         else:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             grad_norm, grads_finite = _reduced_grads(params, mesh, clip)
     with tracing.span("train.optimizer"):
         optimizer.step()

@@ -70,6 +70,7 @@ COUNTERS = ("k1.launches", "k2.launches", "k2.dy_copies", "k3.launches", "k4.lau
             "rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
             "tree_index.table_uploads", "tree_index.table_hits",
             "train.update_tensors", "train.update_bytes",
+            "train.grad_buffer.hits", "train.grad_buffer.misses",
             "to_host.copies", "to_host.bytes",
             *(f"to_host.bytes.{site}" for site in HOST_SITES))
 
