@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.distributions import normalize
 from video_gcp_torch.core.losses import (
@@ -176,7 +177,9 @@ class AdaptiveBinding(nn.Module):
         """Soft-DTW posterior over node-frame matches (adaptive.py:32-60):
         bf-ordered [B, N, T], normalized over nodes. Nothing here takes a
         gradient: the cost is detached, as in the JAX package. Sets
-        outputs.soft_dtw_stability_gap, the raw marginals' drift from 1."""
+        outputs.soft_dtw_stability_gap, the raw marginals' drift from 1.
+        While tracing is on, counts the cost matrix's B * N * T cells
+        (`binding.cells`)."""
         with torch.no_grad():
             if self.hp["matching_type"] == "dtw_image":
                 nodes_df = breadthfirst2depthfirst(outputs.tree.images)
@@ -185,6 +188,8 @@ class AdaptiveBinding(nn.Module):
                 nodes_df = breadthfirst2depthfirst(outputs.tree.e_g_prime)
                 cost = batch_cdist(nodes_df, inputs.enc_traj_seq, reduction="mean")
             cost = self._hack_weights_df(cost)
+            if tracing.enabled():
+                tracing.count("binding.cells", cost.numel())
             w = soft_dtw(cost / self.matching_temp(step), inputs.end_ind)
             outputs.soft_dtw_stability_gap = soft_dtw_stability_gap(w)
             return depthfirst2breadthfirst(normalize(w, 1))
@@ -219,24 +224,27 @@ class AdaptiveBinding(nn.Module):
         by the match distribution (binding_loss.LossAveragingCriterion.loss:
         19-42). It rests on the Gaussian decoder's cdist factorization, so
         the discrete-logistic-mixture decoder raises, as the JAX package's
-        assertion does."""
+        assertion does. Span `binding.nll`; its backward, from the loss term
+        to the decoded images, is span `binding.bwd`."""
         if outputs.tree.get("dlm_params") is not None:
             raise ValueError("adaptive binding requires "
                              "decoder_distribution='gaussian'")
         predictions = outputs.tree.images  # [B, N, ...] bf
         w = outputs.gt_match_dists  # [B, N, T] bf
-        loss_val = batch_cdist(predictions, inputs.traj_seq, reduction="sum")
-        log_sigmas = log_sigma - torch.log(self._hack_weights_bf(torch.ones_like(loss_val)))
-        n = int(np.prod(predictions.shape[2:]))
-        loss_val = (0.5 * loss_val * torch.exp(-2.0 * log_sigmas)
-                    + n * (log_sigmas + 0.5 * math.log(2 * math.pi)))
-        loss_val = loss_val * (w * inputs.pad_mask[:, None])
-        with torch.no_grad():
-            outputs.soft_matched_estimates = torch.einsum(
-                "bnt,bn...->bt...", w.to(predictions.dtype), predictions)
-        return AttrDict(dense_img_rec=penalty_loss(
-            loss_val, weight=self.hp["dense_img_rec_weight"], breakdown=2,
-            reduction=[-1, -2]))
+        with tracing.span("binding.nll"):
+            loss_val = batch_cdist(predictions, inputs.traj_seq, reduction="sum")
+            log_sigmas = log_sigma - torch.log(self._hack_weights_bf(torch.ones_like(loss_val)))
+            n = int(np.prod(predictions.shape[2:]))
+            loss_val = (0.5 * loss_val * torch.exp(-2.0 * log_sigmas)
+                        + n * (log_sigmas + 0.5 * math.log(2 * math.pi)))
+            loss_val = loss_val * (w * inputs.pad_mask[:, None])
+            with torch.no_grad():
+                outputs.soft_matched_estimates = torch.einsum(
+                    "bnt,bn...->bt...", w.to(predictions.dtype), predictions)
+            term = penalty_loss(loss_val, weight=self.hp["dense_img_rec_weight"],
+                                breakdown=2, reduction=[-1, -2])
+        tracing.grad_span("binding.bwd", [term.value], [predictions])
+        return AttrDict(dense_img_rec=term)
 
     def prune_logits(self, e_g_prime_bf: torch.Tensor) -> torch.Tensor:
         """Distance-predictor logits between consecutive df nodes, [B, N-1]

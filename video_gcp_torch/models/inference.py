@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.models.nets import (
     MLP,
@@ -76,11 +77,13 @@ class AttentiveInference(Casting, nn.Module):
             MLP(nz_enc, d_key, hp["nz_mid"], 2) for _ in range(n_layers))
         self.out = nn.Linear(nz_enc, nz_enc)
 
+    @tracing.spanned("inference.attention")
     def forward(self, inf_enc_seq: torch.Tensor, inf_enc_key_seq: torch.Tensor,
                 e_l: torch.Tensor, e_r: torch.Tensor, start_ind: torch.Tensor,
                 end_ind: torch.Tensor) -> AttrDict:
         """Node-axis arguments [B, N, ...]; sequences [B, T, nz_enc];
-        start_ind and end_ind [B, N], the masking bounds."""
+        start_ind and end_ind [B, N], the masking bounds. Each call is span
+        `inference.attention`."""
         if self.deterministic:
             return AttrDict(q_z=self.q(e_l), gamma=None)
         query = self.query_net(e_l, e_r)

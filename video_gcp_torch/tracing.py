@@ -25,7 +25,8 @@ return nothing, so gradients are the same with tracing on or off.
 Counters are entries of `COUNTS`, added to by `count(name, n)`. The kernel
 launch counters, the `rollout.*` counters and the `tree_index.*` counters
 count whether tracing is on or off; the host copies at the instrumented
-sites (`to_host`) and the `train.update_*` counters only while it is on
+sites (`to_host`), the `train.update_*` counters and `binding.cells` (the
+B * N * T cells of each soft-DTW cost matrix) only while it is on
 (`enabled()`), so that a step with tracing off pays no loop over tensors.
 Every span and counter name is declared here, once: `SPANS`, `COUNTERS` and
 `HOST_SITES`.
@@ -51,10 +52,13 @@ SPANS = (
     # model forward
     "model.encoder", "model.tree_level", "model.rollout", "model.decoder",
     "model.binding", "model.losses",
+    # inside the adaptive tree's levels and losses (attentive inference,
+    # soft-DTW binding); the balanced tree opens neither
+    "inference.attention", "binding.nll",
     # the train step
     "train.backward", "train.grad_mask", "train.optimizer",
     # model backward, on the autograd engine's thread (grad_span)
-    "encoder.bwd", "tree_level.bwd", "rollout.bwd", "decoder.bwd",
+    "encoder.bwd", "tree_level.bwd", "rollout.bwd", "decoder.bwd", "binding.bwd",
     # evaluation
     "eval.sample", "eval.metrics", "eval.to_host", "dtw",
     # planning
@@ -69,7 +73,7 @@ HOST_SITES = ("eval.metrics", "eval.rand_seqs", "eval.best_gen", "eval.best_full
 COUNTERS = ("k1.launches", "k2.launches", "k2.dy_copies", "k3.launches", "k4.launches",
             "rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
             "tree_index.table_uploads", "tree_index.table_hits",
-            "train.update_tensors", "train.update_bytes",
+            "train.update_tensors", "train.update_bytes", "binding.cells",
             "train.grad_buffer.hits", "train.grad_buffer.misses",
             "to_host.copies", "to_host.bytes",
             *(f"to_host.bytes.{site}" for site in HOST_SITES))
