@@ -712,7 +712,7 @@ def test_trainer_on_an_h5_dataset_on_card(card, model, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The VRNN's rollout as CUDA graphs (models/rollout_graph.py)
+# The VRNN's rollout as CUDA graphs (models/loop_graph.py)
 # ---------------------------------------------------------------------------
 
 VRNN_SMALL = dict(batch_size=2, max_seq_len=12, img_sz=16, ngf=4, nz_mid_lstm=32,
@@ -761,11 +761,12 @@ class _Rollout:
         self.leaves = [None if t is None else t.to(card, copy=True).requires_grad_()
                        for t in inputs]
         self.gen = torch.Generator(card).manual_seed(0)
-        run = model.rollout if eager else model.rollout_graph
         if eager:
-            self.outputs = run(*self.leaves, eps=None, mode=mode, generator=self.gen)
+            self.outputs = model.rollout(*self.leaves, eps=None, mode=mode, generator=self.gen)
         else:
-            self.outputs = run(model.rollout, self.leaves, model.cell, mode, self.gen)
+            from video_gcp_torch.models.sequential import rollout_noise
+            self.outputs = model.rollout_graph(model.rollout, self.leaves, model.cell, mode,
+                                               self.gen, rollout_noise)
         self.gen_state = self.gen.get_state()
 
     def backward(self):
@@ -852,7 +853,7 @@ def test_train_steps_through_the_rollout_graph_match_eager_steps(card):
     third replaying, against three steps of the same model that each start
     from empty graphs (every rollout eager): losses within 1e-5, parameters
     within 1e-5 of each one's largest."""
-    from video_gcp_torch.models.rollout_graph import RolloutGraph
+    from video_gcp_torch.models.loop_graph import LoopGraph
     graphed, eager = _vrnn(card, "lstm"), _vrnn(card, "lstm")
     rng = np.random.RandomState(0)
     t = VRNN_SMALL["max_seq_len"]
@@ -868,7 +869,8 @@ def test_train_steps_through_the_rollout_graph_match_eager_steps(card):
         totals = []
         for step in range(3):
             if name == "eager":
-                model.rollout_graph = RolloutGraph()
+                model.rollout_graph = LoopGraph(captures="rollout.graph_captures",
+                                                replays="rollout.graph_replays")
             totals.append(train_step(model, opt, batch, step, gen).total.item())
         runs[name] = totals
         if name == "graphed":
@@ -879,6 +881,206 @@ def test_train_steps_through_the_rollout_graph_match_eager_steps(card):
     for name, p in graphed.named_parameters():
         scale = max(want[name].abs().max().item(), 1e-30)
         assert (p - want[name]).abs().max().item() <= 1e-5 * scale, name
+
+
+# ---------------------------------------------------------------------------
+# The GCP tree's level loop as CUDA graphs (models/loop_graph.py)
+# ---------------------------------------------------------------------------
+
+TREE_GRAPH_COUNTERS = ("tree_graph.captures", "tree_graph.replays")
+_ATTENTIVE_HP = dict(batch_size=2, max_seq_len=10, img_sz=16, hierarchy_levels=4,
+                     matching_type="dtw_image", attentive_inference=True,
+                     learn_matching_temp=False, seq_enc="conv", tree_lstm="sum",
+                     regress_length=True, decoder_distribution="gaussian")
+TREE_GRAPH_VARIANTS = ("tied", "untied", "attentive", "bf16")
+
+
+def _graph_tree(card, variant):
+    """A small tree on the card: the tied 9-room-like one of
+    `_small_train_hp`, its untied twin, the small adaptive tree with
+    attentive inference, or the tied one computing in bf16."""
+    if variant == "attentive":
+        hp = default_hparams()
+        hp.overwrite(_ATTENTIVE_HP)
+        hp = dict(hp)
+    else:
+        hp = dict(_small_train_hp(), untied_layers=variant == "untied")
+    torch.manual_seed(0)
+    model = TreeModel(hp, dtype=torch.bfloat16 if variant == "bf16" else None)
+    return model.to(card, memory_format=torch.channels_last).train()
+
+
+def _tree_batch(card):
+    rng = np.random.RandomState(0)
+    seq = torch.from_numpy((rng.rand(2, 10, 16, 16, 3) * 2 - 1).astype(np.float32)).to(card)
+    end = torch.tensor([9, 6], device=card)
+    return AttrDict(traj_seq=seq, I_0=seq[:, 0], I_g=seq[torch.arange(2), end], end_ind=end,
+                    start_ind=torch.zeros(2, dtype=torch.int64, device=card),
+                    pad_mask=(torch.arange(10, device=card)[None] <= end[:, None]).float(),
+                    actions=torch.from_numpy(rng.randn(2, 9, 2).astype(np.float32) * 0.1)
+                    .to(card),
+                    traj_seq_states=torch.from_numpy(rng.rand(2, 10, 2).astype(np.float32))
+                    .to(card))
+
+
+def _tree_graph_counts():
+    return tuple(COUNTS[k] for k in TREE_GRAPH_COUNTERS)
+
+
+def _fresh_level_graph(model):
+    """Graphs made afresh: the model's next training call runs eager."""
+    from video_gcp_torch.models.loop_graph import LoopGraph
+    graph = model.level_graph
+    model.level_graph = LoopGraph(graph.captures, graph.replays, graph.spans)
+
+
+def _close(got: dict, want: dict, what=""):
+    """Each value within 1e-5 of max(1, |value|), each tensor within 1e-4 of
+    max(1e-3, its largest), as the card-vs-CPU step holds its gradients:
+    the graph sums a loop input's gradient inside the loop before autograd
+    adds the rest, so the encoder's gradients differ from the eager ones by
+    rounding (1.8e-5 of `encoder.conv.3.weight`'s largest in the untied
+    tree on an H100)."""
+    assert got.keys() == want.keys()
+    gaps = {}
+    for k, b in want.items():
+        if torch.is_tensor(b):
+            gaps[k] = (got[k] - b).abs().max().item() / max(b.abs().max().item(), 1e-3) / 1e-4
+        else:
+            gaps[k] = abs(got[k] - b) / max(1.0, abs(b)) / 1e-5
+    worst = sorted(gaps, key=gaps.get, reverse=True)[:3]
+    assert gaps[worst[0]] <= 1, (what, [(k, gaps[k]) for k in worst])
+
+
+@pytest.mark.parametrize("variant", TREE_GRAPH_VARIANTS)
+def test_train_steps_through_the_tree_graph_match_eager_steps(card, variant):
+    """Four train steps of a small tree (the warm-up, the capture and two
+    replays) against four steps of the same model whose graphs are made
+    afresh before each step (every level loop eager): each step's losses,
+    the gradients after each step and the parameters after the last as
+    `_close` holds them; the generators end in the same state; the counters read
+    0/1/1/1 captures and 0/1/2/3 replays."""
+    runs = {}
+    for name in ("graphed", "eager"):
+        model = _graph_tree(card, variant)
+        batch = _tree_batch(card)
+        opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam")
+        gen = torch.Generator(card).manual_seed(0)
+        before = _tree_graph_counts()
+        steps = []
+        for step in range(4):
+            if name == "eager":
+                _fresh_level_graph(model)
+            m = train_step(model, opt, batch, step, gen)
+            steps.append(dict(
+                losses={k: v.item() for k, v in m.items() if v.dim() == 0
+                        and v.is_floating_point()},
+                grads={n: p.grad.detach().clone() for n, p in model.named_parameters()
+                       if p.grad is not None},
+                counts=tuple(a - b for a, b in zip(_tree_graph_counts(), before))))
+            assert bool(m.grads_finite)
+        runs[name] = dict(steps=steps, gen=gen.get_state(),
+                          params={n: p.detach().clone() for n, p in model.named_parameters()})
+    graphed, eager = runs["graphed"], runs["eager"]
+    assert [s["counts"] for s in graphed["steps"]] == [(0, 0), (1, 1), (1, 2), (1, 3)]
+    assert [s["counts"] for s in eager["steps"]] == [(0, 0)] * 4
+    for step, (got, want) in enumerate(zip(graphed["steps"], eager["steps"])):
+        _close(got["losses"], want["losses"], f"losses, step {step}")
+        _close(got["grads"], want["grads"], f"gradients, step {step}")
+    assert torch.equal(graphed["gen"], eager["gen"])
+    _close(graphed["params"], eager["params"], "parameters")
+
+
+def test_tree_graph_runs_eager_where_a_replay_would_be_wrong(card):
+    """On the untied tree: a training forward made while the last replay
+    awaits its backward runs eager, and both backwards then give the eager
+    model's gradients (`.grad` None before each: the copies autograd makes
+    of the graph's own gradients); prior-mode, injected-z and no_grad
+    calls on the card leave the graphs as they are; a replay is one
+    `model.tree_level` span and one `tree_level.bwd` span."""
+    from video_gcp_torch import tracing
+    model, want_model = _graph_tree(card, "untied"), _graph_tree(card, "untied")
+    batch = _tree_batch(card)
+
+    def forward(m, seed, **kwargs):
+        kwargs = dict(dict(phase="train", mode="posterior"), **kwargs)
+        return m(batch, generator=torch.Generator(card).manual_seed(seed), **kwargs)
+
+    def backward(m, out):
+        m.zero_grad(set_to_none=True)
+        out.losses.total.value.backward()
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        return dict(grads, total=out.losses.total.value.item())
+
+    def eager(seed):
+        _fresh_level_graph(want_model)
+        return backward(want_model, forward(want_model, seed))
+
+    def counted(expected_delta, run):
+        before = _tree_graph_counts()
+        out = run()
+        assert tuple(a - b for a, b in zip(_tree_graph_counts(), before)) == expected_delta
+        return out
+
+    counted((0, 0), lambda: backward(model, forward(model, 0)))  # the warm-up
+    first = counted((1, 1), lambda: forward(model, 1))
+    second = counted((0, 0), lambda: forward(model, 2))  # the replay awaits its backward
+    _close(backward(model, second), eager(2))
+    _close(backward(model, first), eager(1))
+    counted((0, 1), lambda: _close(backward(model, forward(model, 3)), eager(3)))
+    key = model.level_graph.key
+    z = torch.randn(2, 2 ** 3 - 1, 32, generator=torch.Generator(card).manual_seed(4),
+                    device=card)
+    for run in (lambda: forward(model, 5, phase="test", mode="prior"),
+                lambda: model(AttrDict(batch, z=z), phase="test", mode="posterior"),
+                lambda: torch.no_grad()(forward)(model, 6)):
+        counted((0, 0), run)
+    assert model.level_graph.key == key
+    want = eager(7)
+    with tracing.session() as s:
+        counted((0, 1), lambda: _close(backward(model, forward(model, 7)), want))
+    names = [r.name for r in s.records if r.name in ("model.tree_level", "tree_level.bwd")]
+    assert names == ["model.tree_level", "tree_level.bwd"], names
+
+
+@pytest.fixture
+def one_rank_group(card, tmp_path):
+    """A one-rank NCCL process group on the card."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method="file://" + str(tmp_path / "store"),
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_tree_that_fsdp_split_trains_with_its_levels_eager(card, one_rank_group):
+    """dp x fsdp as `shard_model` makes it, over a one-rank ('data',
+    'model') mesh with every parameter but the scalars split: FSDP2 gathers
+    the parameters anew for each forward, so three train steps of the
+    untied tree leave its level graphs empty and the counters as they
+    are."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import DTensor
+    from video_gcp_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(1, ("data", "model"), (1, 1), "cuda")
+    model = _graph_tree(card, "untied")
+    scalars = {p for p in model.parameters() if p.dim() == 0}  # FSDP2 splits none
+    with torch.no_grad():  # nor a channels_last conv weight (as shard_model does)
+        for p in model.parameters():
+            p.data = p.data.contiguous()
+    fully_shard(model, mesh=mesh, ignored_params=scalars)
+    assert all(isinstance(p, DTensor) for p in model.parameters() if p not in scalars)
+    opt = make_optimizer([p for p in model.parameters() if p.requires_grad], "radam")
+    batch, gen = _tree_batch(card), torch.Generator(card).manual_seed(0)
+    before = _tree_graph_counts()
+    for step in range(3):
+        m = train_step(model, opt, batch, step, gen, mesh)
+        assert bool(m.grads_finite) and bool(torch.isfinite(m.total))
+    assert _tree_graph_counts() == before
+    assert model.level_graph.key is None and model.level_graph.graphs is None
 
 
 def _no_sync_calls(model, evaluator, inputs, batch, card, seeds):
@@ -909,15 +1111,28 @@ def test_an_eval_sample_and_a_train_forward_do_not_synchronise(card, tmp_path, m
                      traj_seq_states=torch.rand(2, 10, 2, device=card))
     evaluator = Evaluator(model, str(tmp_path), hp, 10, pruning_scheme="pruned_dtw",
                           top_of_100=False)
-    _no_sync_calls(model, evaluator, inputs, batch, card, (1, 2))  # builds, makes the tables
+    # builds, makes the tables; the train forwards warm up and capture the level graphs
+    for seeds in ((1, 2), (5, 6)):
+        _no_sync_calls(model, evaluator, inputs, batch, card, seeds)
     torch.cuda.synchronize()
     uploads = COUNTS["tree_index.table_uploads"]
     hits = COUNTS["tree_index.table_hits"]
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = _no_sync_calls(model, evaluator, inputs, batch, card, (3, 4))
+        got = _no_sync_calls(model, evaluator, inputs, batch, card, (3, 4))  # a replay
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    # the train forward with its levels eager (a fresh LoopGraph's warm-up) too
+    graphs = model.level_graph
+    _fresh_level_graph(model)
+    replays = COUNTS["tree_graph.replays"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _no_sync_calls(model, evaluator, inputs, batch, card, (7, 8))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert COUNTS["tree_graph.replays"] == replays
+    model.level_graph = graphs
     assert COUNTS["tree_index.table_uploads"] == uploads
     assert COUNTS["tree_index.table_hits"] > hits
     monkeypatch.setattr(tree_index, "_TABLES", {})

@@ -1,5 +1,5 @@
 """The sequential VRNN's rollout and its CUDA graphs
-(video_gcp_torch/models/rollout_graph.py) where the graphs do not engage:
+(video_gcp_torch/models/loop_graph.py) where the graphs do not engage:
 on the CPU, at the small widths of tests/test_torch_sequential.py, torch on
 one thread. The graphed path itself runs on the card
 (tests/test_torch_cuda.py); here, the equivalence it rests on:
@@ -22,7 +22,7 @@ from video_gcp_torch import tracing
 from video_gcp_torch.core.attrdict import AttrDict
 from video_gcp_torch.core.distributions import Gaussian
 from video_gcp_torch.models.hyperparameters import default_hparams
-from video_gcp_torch.models.rollout_graph import draw_noise
+from video_gcp_torch.models.loop_graph import draw_noise
 from video_gcp_torch.models.sequential import SequentialModel
 
 B, T, IMG, NZ_VAE, NZ_ENC = 2, 8, 16, 8, 32
@@ -97,8 +97,9 @@ def test_predrawn_noise_is_the_eager_draws(monkeypatch, mode):
     with torch.no_grad():
         eager = model.rollout(*_rollout_inputs(), eps=None, mode=mode, generator=eager_gen)
         assert len(drawn) == T - 1
-        noise = draw_noise(noise_gen, T - 1, (B, NZ_VAE), "cpu", torch.float32)
-        assert torch.equal(noise, torch.stack(drawn))
+        noise = torch.empty(T - 1, B, NZ_VAE).unbind(0)
+        draw_noise(noise_gen, noise)
+        assert torch.equal(torch.stack(noise), torch.stack(drawn))
         assert torch.equal(noise_gen.get_state(), eager_gen.get_state())
         # the loop fed the pre-drawn noise (as the graph runs it) is the eager loop
         fed = model.rollout(*_rollout_inputs(), eps=noise, mode=mode, generator=None)
@@ -108,5 +109,10 @@ def test_predrawn_noise_is_the_eager_draws(monkeypatch, mode):
 
 
 def test_noise_needs_a_generator():
+    """A rollout that draws without a generator is left to the eager loop,
+    whose `Gaussian.sample` refuses it."""
+    from video_gcp_torch.models.sequential import rollout_noise
+    model = _model()
     with pytest.raises(ValueError, match="explicit torch.Generator"):
-        draw_noise(None, T - 1, (B, NZ_VAE), "cpu", torch.float32)
+        model.rollout_graph(model.rollout, _rollout_inputs(), model.cell, "posterior", None,
+                            rollout_noise)

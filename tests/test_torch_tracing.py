@@ -112,6 +112,7 @@ def test_spans_are_user_annotations_under_the_profiler():
 
 _USES = re.compile(r"""\b(span|spanned|grad_span|count)\(\s*["']([^"']+)["']""")
 _LAUNCH_COUNTERS = re.compile(r"""\bcounter=["']([^"']+)["']""")  # cuda_build.launch's
+_GRAPH_COUNTERS = re.compile(r"""\b(?:captures|replays)=["']([^"']+)["']""")  # LoopGraph's
 _SITES = re.compile(r"""(?:to_host|\b_host)\([^()]*(?:\([^()]*\)[^()]*)*,\s*["']([^"']+)["']""")
 
 
@@ -124,6 +125,7 @@ def test_every_name_used_in_the_package_is_declared():
         for kind, name in _USES.findall(text):
             used["count" if kind == "count" else "span"].add(name)
         used["count"].update(_LAUNCH_COUNTERS.findall(text))
+        used["count"].update(_GRAPH_COUNTERS.findall(text))
         used["site"].update(_SITES.findall(text))
     assert used["span"] <= set(tracing.SPANS), used["span"] - set(tracing.SPANS)
     assert used["count"] <= set(tracing.COUNTERS), used["count"] - set(tracing.COUNTERS)
@@ -131,6 +133,7 @@ def test_every_name_used_in_the_package_is_declared():
     assert set(tracing.SPANS) <= used["span"], set(tracing.SPANS) - used["span"]
     assert set(tracing.HOST_SITES) <= used["site"]
     assert {"rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
+            "tree_graph.captures", "tree_graph.replays",
             "k1.launches", "k2.launches", "k3.launches", "k4.launches",
             "tree_index.table_uploads", "tree_index.table_hits",
             "train.update_tensors", "train.update_bytes",

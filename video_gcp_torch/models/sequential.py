@@ -16,7 +16,7 @@ prepended (sequential.py:57). The loop and the stacking of its outputs
 (`SequentialModel.rollout`) are span 'model.rollout', their backward
 'rollout.bwd'; counter 'rollout.steps' adds the steps of each rollout. A
 training rollout on the card runs the same loop as CUDA graphs, forward and
-backward (models/rollout_graph.py).
+backward (models/loop_graph.py).
 """
 from __future__ import annotations
 
@@ -45,7 +45,15 @@ from video_gcp_torch.models.nets import (
     make_lstm_stack,
     set_compute_dtype,
 )
-from video_gcp_torch.models.rollout_graph import RolloutGraph
+from video_gcp_torch.models.loop_graph import LoopGraph, sharded
+
+
+def rollout_noise(outputs):
+    """The buffers of a rollout's draws, one [B, nz_vae] a step, shaped from
+    its q_z.mu [B, T-1, nz_vae]."""
+    q_mu = outputs[1]
+    return torch.empty(q_mu.shape[1], q_mu.shape[0], q_mu.shape[2], dtype=q_mu.dtype,
+                       device=q_mu.device).unbind(0)
 
 
 class VRNNCell(Casting, nn.Module):
@@ -99,7 +107,9 @@ class SequentialModel(BaseGCPModel):
             # model has none under the DLM decoder
             del self.log_sigma_mod
         self.cell = VRNNCell(hp)
-        self.rollout_graph = RolloutGraph()  # CUDA graphs of the rollout (training on the card)
+        # CUDA graphs of the rollout (training on the card)
+        self.rollout_graph = LoopGraph(captures="rollout.graph_captures",
+                                       replays="rollout.graph_replays")
         self.init_mlp = MLP(3 * hp["nz_enc"], lstm_state_size(hp), hp["nz_mid"],
                             hp["n_processing_layers"])
         if self.regress_decoder_actions:
@@ -127,7 +137,8 @@ class SequentialModel(BaseGCPModel):
         region_inputs = [state, x, context, x_primes, more, z]
         with tracing.span("model.rollout"):
             encodings, q_mu, q_log_sigma, p_mu, p_log_sigma = self.rollout_graph(
-                self.rollout, region_inputs, self.cell, mode, generator)
+                self.rollout, region_inputs, self.cell, mode, generator,
+                None if z is not None else rollout_noise, eligible=not sharded(self))
         q_z, p_z = Gaussian(q_mu, q_log_sigma), Gaussian(p_mu, p_log_sigma)
         tracing.count("rollout.steps", t_steps)
         tracing.grad_span("rollout.bwd", [encodings, q_z.mu, q_z.log_sigma, p_z.mu,
@@ -144,7 +155,7 @@ class SequentialModel(BaseGCPModel):
         """The VRNN's T-1 steps and the stacking of their outputs:
         (encodings [B, T-1, nz_enc], q_z.mu, q_z.log_sigma, p_z.mu,
         p_z.log_sigma [B, T-1, nz_vae]). Step t's noise is eps[t] where
-        `eps` is given ([T-1, B, nz_vae]), else drawn from `generator`."""
+        `eps` is given (T-1 tensors [B, nz_vae]), else drawn from `generator`."""
         xs, q_zs, p_zs = [], [], []
         for t in range(self.hp["max_seq_len"] - 1):
             step_context = context if more is None else torch.cat([context, more[:, t]], -1)

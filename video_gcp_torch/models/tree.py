@@ -5,7 +5,9 @@ The tree is a dense breadth-first tensor [B, 2^L - 1, ...]. Each of the L
 levels is one batched call over all 2^d nodes of that level: prior ->
 (injected z | prior sample) -> TreeLSTM subgoal prediction. The children's
 parent tensors are built by `interleave`. All 2^L - 1 nodes are then decoded
-in one folded pass through the conv pyramid.
+in one folded pass through the conv pyramid. A training forward on the card
+runs the level loop as CUDA graphs, forward and backward
+(models/loop_graph.py).
 
 Ported: the prior rollout (`mode='prior'`, `phase` 'test' or 'plan') and
 training (`phase='train'`, `mode='posterior'`): posterior latents from the
@@ -15,6 +17,7 @@ predictor's loss, the auxiliary models and the loss total.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -28,6 +31,7 @@ from video_gcp_torch.evaluation.eval_binding import basic_timeline_index
 from video_gcp_torch.models.base import BaseGCPModel
 from video_gcp_torch.models.binding import AdaptiveBinding, BalancedBinding
 from video_gcp_torch.models.inference import AttentiveInference, MatchedInference
+from video_gcp_torch.models.loop_graph import LoopGraph, sharded
 from video_gcp_torch.models.nets import (
     MLP,
     FixedPriorHead,
@@ -71,7 +75,10 @@ class TreeLevel(nn.Module):
 
     def forward(self, inputs: AttrDict, e_l, e_r, hidden_l, hidden_r, t_l, t_r,
                 z_ext: Optional[torch.Tensor], mode: str,
-                generator: Optional[torch.Generator]) -> AttrDict:
+                generator: Optional[torch.Generator],
+                eps: Optional[torch.Tensor] = None) -> AttrDict:
+        """The level's noise is `eps` where given, else drawn from
+        `generator` by `Gaussian.sample`."""
         sg = AttrDict()
         sg.p_z = self.prior(e_l, e_r)
         sg.match_timesteps = (t_l + t_r) / 2.0
@@ -90,13 +97,13 @@ class TreeLevel(nn.Module):
                 # q(z | e_l, e_r, the sequence at the node's timestep)
                 sg.update(self.inference(inputs.inf_enc_seq, e_l, e_r,
                                          sg.match_timesteps))
-            z = sg.q_z.sample(generator)
+            z = sg.q_z.sample(generator) if eps is None else sg.q_z.reparametrize(eps)
         elif z_ext is not None:
             # injected latents (planner): standard normal mapped through the
             # learned prior (tree_module.py:81-82)
             z = sg.p_z.reparametrize(z_ext) if self.learned_prior else z_ext
         else:
-            z = sg.p_z.sample(generator)
+            z = sg.p_z.sample(generator) if eps is None else sg.p_z.reparametrize(eps)
         if "q_z" not in sg:
             sg.q_z = sg.p_z  # prior mode: q is the prior
 
@@ -152,27 +159,73 @@ class TreeModel(BaseGCPModel):
             self.binding = AdaptiveBinding(hp)
         else:
             raise NotImplementedError(hp["matching_type"])
+        # CUDA graphs of the level loop (training on the card)
+        self.level_graph = LoopGraph(captures="tree_graph.captures",
+                                     replays="tree_graph.replays",
+                                     spans=("model.tree_level", "tree_level.bwd"))
         set_compute_dtype(self, dtype)
 
     def predict_sequence(self, inputs: AttrDict, outputs: AttrDict,
                          end_ind: torch.Tensor, mode: str,
                          generator: Optional[torch.Generator]) -> AttrDict:
-        e_l, e_r = inputs.e_0[:, None], inputs.e_g[:, None]
+        region_inputs = self.level_inputs(inputs, end_ind)
+        # a training forward runs the levels as CUDA graphs where the call allows
+        e_g_prime, match_timesteps, z, q_mu, q_log_sigma, p_mu, p_log_sigma, *gamma = (
+            self.level_graph(self.level_loop, region_inputs, self.tree_levels, mode, generator,
+                             self.level_noise,
+                             eligible=(mode == "posterior" and region_inputs[-1] is None
+                                       and not sharded(self))))
+        tree = AttrDict(e_g_prime=e_g_prime, match_timesteps=match_timesteps, z=z,
+                        q_z=Gaussian(q_mu, q_log_sigma), p_z=Gaussian(p_mu, p_log_sigma))
+        if gamma:  # attention weights [B, N, T]
+            tree.gamma = gamma[0]
+        tree.images, tree.dlm_params = self.decode_seq(tree.e_g_prime,
+                                                       inputs.skips)
+        outputs.tree = tree
+        return outputs
+
+    def level_inputs(self, inputs: AttrDict, end_ind: torch.Tensor) -> list:
+        """The arguments of `level_loop` before `eps`, from the encoded
+        inputs: e_0, e_g, the root's bounds, the inference's sequences, the
+        attention's bounds (attentive inference only) and the injected
+        latents in the parameters' dtype, None where absent."""
         t_l, t_r = (t[:, None] for t in self.binding.root_bounds(inputs, end_ind))
+        z = inputs.get("z")
+        attentive = self.hp["attentive_inference"]
+        return [inputs.e_0, inputs.e_g, t_l, t_r, inputs.get("inf_enc_seq"),
+                inputs.get("inf_enc_key_seq"), inputs.get("start_ind") if attentive else None,
+                inputs.get("end_ind") if attentive else None,
+                None if z is None else z.to(self.param_dtype)]
+
+    def level_loop(self, e_0, e_g, t_l, t_r, inf_enc_seq, inf_enc_key_seq, start_ind,
+                   end_ind, z, eps, mode: str, generator: Optional[torch.Generator]):
+        """The L levels and the concatenation of their outputs over the
+        breadth-first node axis of N = 2^L - 1 nodes: (e_g_prime
+        [B, N, nz_enc], match_timesteps [B, N], z, q_z.mu, q_z.log_sigma,
+        p_z.mu, p_z.log_sigma [B, N, nz_vae]), then gamma [B, N, T] where
+        the inference attends. `t_l`, `t_r` are the root's bounds [B, 1];
+        `z` the injected depth-first latents or None; start_ind and end_ind
+        [B] the attention's bounds. Level d's noise is eps[d] ([B, 2^d,
+        nz_vae]) where `eps` is given, else drawn from `generator`. Run
+        eagerly (no `eps`), each level is a span of its own."""
+        inputs = AttrDict(e_0=e_0, e_g=e_g, inf_enc_seq=inf_enc_seq,
+                          inf_enc_key_seq=inf_enc_key_seq, start_ind=start_ind,
+                          end_ind=end_ind)
+        e_l, e_r = e_0[:, None], e_g[:, None]
         hidden_l = hidden_r = None
-        z_layers = None
-        if "z" in inputs:
-            z_layers = depthfirst2layers(inputs.z.to(self.param_dtype))
+        z_layers = None if z is None else depthfirst2layers(z)
+        eager = eps is None
 
         levels = []
         for d in range(self.depth):
             level = self.tree_levels[d if self.hp["untied_layers"] else 0]
-            with tracing.span("model.tree_level"):
+            with tracing.span("model.tree_level") if eager else contextlib.nullcontext():
                 sg = level(inputs, e_l, e_r, hidden_l, hidden_r, t_l, t_r,
                            None if z_layers is None else z_layers[d], mode,
-                           generator)
-            tracing.grad_span("tree_level.bwd", _level_tensors(sg),
-                              [e_l, e_r, hidden_l, hidden_r])
+                           generator, None if eps is None else eps[d])
+            if eager:
+                tracing.grad_span("tree_level.bwd", _level_tensors(sg),
+                                  [e_l, e_r, hidden_l, hidden_r])
             levels.append(sg)
             if d + 1 < self.depth:
                 t_mid = sg.match_timesteps
@@ -185,19 +238,20 @@ class TreeModel(BaseGCPModel):
                     hidden_l = interleave(hidden_l, sg.hidden_state)
                     hidden_r = interleave(sg.hidden_state, hidden_r)
 
-        tree = AttrDict(
-            e_g_prime=torch.cat([l.e_g_prime for l in levels], 1),
-            match_timesteps=torch.cat([l.match_timesteps for l in levels], 1),
-            z=torch.cat([l.z for l in levels], 1),
-            q_z=Gaussian.cat([l.q_z for l in levels], 1),
-            p_z=Gaussian.cat([l.p_z for l in levels], 1),
-        )
-        if levels[0].get("gamma") is not None:  # attention weights [B, N, T]
-            tree.gamma = torch.cat([l.gamma for l in levels], 1)
-        tree.images, tree.dlm_params = self.decode_seq(tree.e_g_prime,
-                                                       inputs.skips)
-        outputs.tree = tree
-        return outputs
+        out = [torch.cat([l[k] for l in levels], 1) for k in ("e_g_prime", "match_timesteps", "z")]
+        for k in ("q_z", "p_z"):
+            dist = Gaussian.cat([l[k] for l in levels], 1)
+            out += [dist.mu, dist.log_sigma]
+        if levels[0].get("gamma") is not None:
+            out.append(torch.cat([l.gamma for l in levels], 1))
+        return tuple(out)
+
+    def level_noise(self, outputs):
+        """The buffers of the levels' draws, [B, 2^d, nz_vae] at level d,
+        shaped from the loop's q_z.mu [B, N, nz_vae]."""
+        q_mu = outputs[3]
+        return [torch.empty(q_mu.shape[0], 2 ** d, q_mu.shape[2], dtype=q_mu.dtype,
+                            device=q_mu.device) for d in range(self.depth)]
 
     def forward(self, inputs: AttrDict, phase: str = "test",
                 mode: str = "prior", pred_length: bool = False,

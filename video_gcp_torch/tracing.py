@@ -23,7 +23,7 @@ the backward pass ends. The hooks are registered only while tracing is on and
 return nothing, so gradients are the same with tracing on or off.
 
 Counters are entries of `COUNTS`, added to by `count(name, n)`. The kernel
-launch counters, the `rollout.*` counters and the `tree_index.*` counters
+launch counters, the `rollout.*`, `tree_graph.*` and `tree_index.*` counters
 count whether tracing is on or off; the host copies at the instrumented
 sites (`to_host`), the `train.update_*` counters and `binding.cells` (the
 B * N * T cells of each soft-DTW cost matrix) only while it is on
@@ -72,6 +72,7 @@ HOST_SITES = ("eval.metrics", "eval.rand_seqs", "eval.best_gen", "eval.best_full
               "eval.gt_seq", "eval.end_ind", "sim.outputs", "cost.result")
 COUNTERS = ("k1.launches", "k2.launches", "k2.dy_copies", "k3.launches", "k4.launches",
             "rollout.steps", "rollout.graph_captures", "rollout.graph_replays",
+            "tree_graph.captures", "tree_graph.replays",
             "tree_index.table_uploads", "tree_index.table_hits",
             "train.update_tensors", "train.update_bytes", "binding.cells",
             "train.grad_buffer.hits", "train.grad_buffer.misses",
